@@ -4,14 +4,18 @@
 
 Runs the bench configuration (B=1024, 400 rollouts/move, eval_every=8,
 kernel_levels=6, expand_thresh=100, max_nodes=512) with a seeded random-init
-policy and ``data/weights/value_r2.pt``, and prints, for three moves and then
-a fourth under the profiler:
+policy and ``data/weights/value_r2.pt``, and prints:
 
-* host-clock time per phase of one move, each phase ended by a device
-  synchronise: ``init_trees``, light rollouts (kernel only), eval rollouts
-  (kernel + features + nets + expansion), ``choose_action`` + rules step;
-* from ``torch.profiler`` over one unsynchronised move: device time by
-  kernel name and the device-busy share of the move's wall time.
+* for three moves played as the search plays them (``run_search``'s groups,
+  one kernel launch per run of rollouts up to the next eval step), the
+  host-clock time per phase, each phase ended by a device synchronise:
+  ``init_trees``, the K1 launches (with their count and rollouts), the eval
+  phases (features + nets + expansion), ``choose_action`` + rules step;
+* for one move played rollout by rollout (``search_step``), the same split
+  into light and eval rollouts: what a launch per rollout costs;
+* from ``torch.profiler`` over one unsynchronised move through
+  ``mcts.search``: device time by kernel name, the device-busy share of the
+  move's wall time, and the K1 launches and rollouts of that move.
 
 Needs a GPU; it raises without one.
 """
@@ -19,6 +23,7 @@ Needs a GPU; it raises without one.
 from __future__ import annotations
 
 import collections
+import subprocess
 import time
 
 import torch
@@ -26,9 +31,10 @@ import torch
 from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG as CFG, VALUE_WEIGHTS
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.models import nets
+from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.search import mcts
 
-MOVES = 3  # synchronised moves played before the profiled one
+MOVES = 3  # synchronised grouped moves played before the stepped and the profiled one
 
 
 def _sync_time(fn):
@@ -39,22 +45,38 @@ def _sync_time(fn):
     return out, time.perf_counter() - t0
 
 
+def _finish(states, trees, split):
+    states, dt = _sync_time(lambda: rules.step(states, mcts.choose_action(trees)))
+    split["choose + step"] += dt
+    return {k: v * 1e3 for k, v in split.items()}, states
+
+
+def group_split(states, params, ev) -> tuple[dict[str, float], object]:
+    """Synchronised per-phase host time (ms) of one move played in
+    ``run_search``'s groups; returns the split and the next states."""
+    split = collections.Counter()
+    trees, dt = _sync_time(lambda: mcts.init_trees(states, ev, params, CFG))
+    split["init_trees"] += dt
+    groups = mcts.rollout_groups(CFG.n_rollouts, CFG.eval_every)
+    for length, evaluate in groups:
+        res, dt = _sync_time(lambda: mcts.launch_rollouts(trees, ev, CFG, length))
+        split[f"K1 launches ({len(groups)} for {CFG.n_rollouts} rollouts)"] += dt
+        if evaluate:
+            trees, dt = _sync_time(lambda: mcts.evaluate_leaves(trees, ev, params, CFG, res))
+            split["eval phases"] += dt
+    return _finish(states, trees, split)
+
+
 def phase_split(states, params, ev) -> tuple[dict[str, float], object]:
-    """Synchronised per-phase host time (ms) of one move; returns the split
-    and the next states."""
+    """Synchronised per-phase host time (ms) of one move played rollout by
+    rollout (``search_step``); returns the split and the next states."""
     split = collections.Counter()
     trees, dt = _sync_time(lambda: mcts.init_trees(states, ev, params, CFG))
     split["init_trees"] += dt
     for i in range(CFG.n_rollouts):
         trees, dt = _sync_time(lambda: mcts.search_step(trees, ev, params, CFG, i))
         split["eval rollouts" if i % CFG.eval_every == 0 else "light rollouts"] += dt
-
-    def finish():
-        return rules.step(states, mcts.choose_action(trees))
-
-    states, dt = _sync_time(finish)
-    split["choose + step"] += dt
-    return {k: v * 1e3 for k, v in split.items()}, states
+    return _finish(states, trees, split)
 
 
 def device_profile(states, params, ev) -> tuple[list[tuple[str, float, int]], float, float]:
@@ -88,13 +110,24 @@ def main():
     ev = mcts.net_evaluator()
     states = st.new_game_batch(BENCH_BATCH, device=dev)
     print(f"{torch.cuda.get_device_name(0)}; batch {BENCH_BATCH}")
-    for m in range(MOVES):
-        split, states = phase_split(states, params, ev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    print(smi.stdout.strip().splitlines()[0])
+    plan = [("grouped", group_split)] * MOVES + [("rollout by rollout", phase_split)]
+    for m, (how, split_fn) in enumerate(plan):
+        split, states = split_fn(states, params, ev)
         total = sum(split.values())
         parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
-        print(f"move {m}: synchronised total {total:.2f} ms: {parts}")
+        print(f"move {m} ({how}): synchronised total {total:.2f} ms: {parts}")
+    rollout.reset_launches()
     rows, dev_ms, wall = device_profile(states, params, ev)
-    print(f"profiled move: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms ({100 * dev_ms / wall:.1f}%), idle {100 - 100 * dev_ms / wall:.1f}%")
+    print(
+        f"profiled move: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms ({100 * dev_ms / wall:.1f}%), "
+        f"idle {100 - 100 * dev_ms / wall:.1f}%; launches {dict(rollout.launches)}, "
+        f"K1 rollouts {rollout.kernel_rollouts}"
+    )
     ours = [r for r in rows if "descend_backprop_kernel" in r[0] or "write_rows_kernel" in r[0]]
     for name, ms, calls in rows[:15] + ours:
         print(f"  {ms:9.3f} ms  {calls:6d} calls  {1e3 * ms / calls:9.2f} us/call  {name[:90]}")

@@ -1,17 +1,25 @@
 """The search's two rollout kernels: wrappers, plain versions, launch counts.
 
 ``descend_backprop`` replaces the Pallas kernel
-``bokego_tpu/ops/rollout.py::descend_backprop`` (body ``_kernel``): one
-fused PUCT descent per tree for at most ``levels`` levels, the leaf's cached
-value (NaN -> 0, flagged unvalued), and the in-place backprop of N (and Wv)
-over every traversed edge.  ``write_rows`` replaces
+``bokego_tpu/ops/rollout.py::descend_backprop`` (body ``_kernel``) together
+with the scan of light search steps the JAX package runs around it:
+``rollouts`` consecutive rollouts on every tree, each one fused PUCT descent
+for at most ``levels`` levels, the leaf's cached value (NaN -> 0, flagged
+unvalued), the in-place backprop of N (and Wv) over every traversed edge and
+the root's own stat update.  ``write_rows`` replaces
 ``bokego_tpu/ops/rollout.py::write_rows`` (body ``_write_rows_kernel``):
 ``pstats[b, node[b]] = rows[b]`` where ``mask[b]``, in place.
 
-The CUDA kernels are in ``csrc/rollout.cu``, whose header note says what
-bounds them on the H100 and how their design answers it.  Each wrapper takes
-its plain PyTorch version only for CPU tensors (the tests); for a CUDA tensor
-it launches the kernel or raises.  ``launches`` counts kernel launches.
+The CUDA kernels are in ``csrc/rollout.cu``.  What bounds K1 on the H100 is
+not bytes but latency: a chain of dependent row loads per tree, a launch per
+call and, when every rollout is a launch, the host between them.  Its design
+answers with one launch for all the rollouts up to the next leaf evaluation
+(one warp owns a tree and loops, so re-walked rows come from cache), loads
+of only the lanes and planes the score needs, and a path kept in registers;
+the source's header note has the details.  Each wrapper takes its plain
+PyTorch version only for CPU tensors (the tests); for a CUDA tensor it
+launches the kernel or raises.  ``launches`` counts kernel launches and
+``kernel_rollouts`` the rollouts those launches of K1 ran.
 """
 
 from __future__ import annotations
@@ -33,13 +41,16 @@ from bokego_tpu_torch.search.tree import (
 )
 
 launches = {"descend_backprop": 0, "write_rows": 0}
+kernel_rollouts = 0  # rollouts run by descend_backprop's kernel launches
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def reset_launches() -> None:
+    global kernel_rollouts
     for k in launches:
         launches[k] = 0
+    kernel_rollouts = 0
 
 
 def _lib():
@@ -48,7 +59,7 @@ def _lib():
     lib = build.load("rollout")
     if not getattr(lib, "_bokego_typed", False):
         lib.bokego_descend_backprop.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I,
+            _P, _P, _P, _P, _P, _I, _I, _I, _I,
             ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _P,
         ]
         lib.bokego_descend_backprop.restype = _I
@@ -89,12 +100,15 @@ def _raise_on(err: int, name: str) -> None:
 
 
 class KernelDescent(NamedTuple):
+    """The last rollout of a ``descend_backprop`` call, per tree."""
+
     leaf: torch.Tensor  # (B,) int64
     leaf_n: torch.Tensor  # (B,) f32 — leaf's edge visit count (pre-increment)
     leaf_val: torch.Tensor  # (B,) f32 — cached leaf value, NaN -> 0
     leaf_unvalued: torch.Tensor  # (B,) f32 — 1.0 where the value was NaN
     depth: torch.Tensor  # (B,) int64
     leaf_terminal: torch.Tensor  # (B,) f32 — C_TERM of the leaf's edge; 0 at depth 0
+    root_n: torch.Tensor  # (B,) f32 — the root's own N before that rollout's update
 
 
 def unpack(res: torch.Tensor) -> KernelDescent:
@@ -106,22 +120,13 @@ def unpack(res: torch.Tensor) -> KernelDescent:
         leaf_unvalued=res[:, 4],
         depth=res[:, 1].long(),
         leaf_terminal=res[:, 5],
+        root_n=res[:, 6],
     )
 
 
-def descend_backprop_plain(
-    pstats: torch.Tensor,
-    value: torch.Tensor,
-    root: torch.Tensor,
-    *,
-    c: float,
-    w: float,
-    use_value: bool = True,
-    levels: int = 8,
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: same per-tree algorithm,
-    vectorised over trees, looping over ``levels``.  Updates ``pstats`` in
-    place and returns ``res (B, 128)``."""
+def _rollout_plain(pstats, value, root, root_stats, c, w, use_value, levels) -> torch.Tensor:
+    """One rollout on every tree, vectorised over trees, looping over
+    ``levels``; returns ``res (B, 128)``."""
     batch = pstats.shape[0]
     dev = pstats.device
     ar = torch.arange(batch, device=dev)
@@ -174,6 +179,35 @@ def descend_backprop_plain(
     res[:, 3] = v
     res[:, 4] = unval.float()
     res[:, 5] = leaf_term
+    res[:, 6] = root_stats[:, 0]
+    # The root's own update, from the root player's side.
+    root_sign = torch.where(depth % 2 == 0, 1.0, -1.0)
+    zeros = torch.zeros_like(root_sign)
+    root_stats += torch.stack(
+        [torch.ones_like(root_sign), zeros, root_sign * v if use_value else zeros], dim=-1
+    )
+    return res
+
+
+def descend_backprop_plain(
+    pstats: torch.Tensor,
+    value: torch.Tensor,
+    root: torch.Tensor,
+    root_stats: torch.Tensor,
+    *,
+    c: float,
+    w: float,
+    use_value: bool = True,
+    levels: int = 8,
+    rollouts: int = 1,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same per-tree algorithm,
+    ``rollouts`` times in sequence.  Updates ``pstats`` and ``root_stats`` in
+    place and returns the last rollout's ``res (B, 128)``."""
+    if rollouts < 1:
+        raise ValueError(f"rollouts={rollouts}: at least 1")
+    for _ in range(rollouts):
+        res = _rollout_plain(pstats, value, root, root_stats, c, w, use_value, levels)
     return res
 
 
@@ -181,36 +215,46 @@ def descend_backprop(
     pstats: torch.Tensor,
     value: torch.Tensor,
     root: torch.Tensor,
+    root_stats: torch.Tensor,
     *,
     c: float,
     w: float,
     use_value: bool = True,
     levels: int = 8,
+    rollouts: int = 1,
 ) -> torch.Tensor:
-    """One fused rollout on every tree; ``pstats`` is updated in place.
+    """``rollouts`` fused rollouts in sequence on every tree; ``pstats`` and
+    ``root_stats f32[B, 3]`` (the root's own N, Wq, Wv) are updated in place.
 
-    Returns ``res f32[B, 128]`` with lanes ``[leaf, depth, leaf_n, v,
-    unvalued, leaf_terminal]`` (see :func:`unpack`).  The caller applies the
-    root's own stat update and any leaf evaluation/expansion.
+    Returns ``res f32[B, 128]`` describing the last rollout, with lanes
+    ``[leaf, depth, leaf_n, v, unvalued, leaf_terminal, root N before that
+    rollout]`` (see :func:`unpack`).  The caller does any leaf evaluation and
+    expansion.  ``pstats`` rows keep the child plane at -1 in lanes 81..127.
     """
     batch, n_pool = _check_pstats(pstats)
     _check("value", value, torch.float32, (batch, n_pool), pstats.device)
     _check("root", root, torch.int64, (batch,), pstats.device)
+    _check("root_stats", root_stats, torch.float32, (batch, 3), pstats.device)
     if pstats.device.type == "cpu":
         return descend_backprop_plain(
-            pstats, value, root, c=c, w=w, use_value=use_value, levels=levels
+            pstats, value, root, root_stats,
+            c=c, w=w, use_value=use_value, levels=levels, rollouts=rollouts,
         )
+    if rollouts < 1:
+        raise ValueError(f"rollouts={rollouts}: at least 1")
     lib = _lib()
     if not 0 <= levels <= lib.bokego_max_levels():
         raise ValueError(f"levels={levels} outside [0, {lib.bokego_max_levels()}]")
     res = torch.empty((batch, LANE_PAD), dtype=torch.float32, device=pstats.device)
     stream = torch.cuda.current_stream(pstats.device).cuda_stream
     err = lib.bokego_descend_backprop(
-        pstats.data_ptr(), value.data_ptr(), root.data_ptr(), res.data_ptr(),
-        batch, n_pool, levels, c, w, 1.0 - w, int(use_value), stream,
+        pstats.data_ptr(), value.data_ptr(), root.data_ptr(), root_stats.data_ptr(),
+        res.data_ptr(), batch, n_pool, levels, rollouts, c, w, 1.0 - w, int(use_value), stream,
     )
     _raise_on(err, "descend_backprop")
+    global kernel_rollouts
     launches["descend_backprop"] += 1
+    kernel_rollouts += rollouts
     return res
 
 

@@ -1,20 +1,26 @@
 """Batched PUCT Monte-Carlo tree search, kernel path (counterpart of
 ``bokego_tpu/search/mcts.py``).
 
-Each rollout runs the fused descend/backprop kernel on every tree
-(``ops/rollout.descend_backprop``); on eval steps the leaves are evaluated
-with one batched net forward and expanded, the parent rows landing through
-the ``write_rows`` kernel.  The order is the JAX kernel path's delayed
-valuation: backprop with the leaf's current cached value first, then
-eval/expand (``SearchConfig.eval_every``).
+Rollouts run through the fused descend/backprop kernel
+(``ops/rollout.descend_backprop``), which also applies the root's own stat
+update; on eval steps the leaves are evaluated with one batched net forward
+and expanded, the parent rows landing through the ``write_rows`` kernel.
+The order is the JAX kernel path's delayed valuation: backprop with the
+leaf's current cached value first, then eval/expand
+(``SearchConfig.eval_every``).
 
-Where the JAX package gates the eval phase with ``lax.cond(any_work, …)``,
-the port decides on the host: the ``eval_every`` gate is read first (no
-device work), and only on eval steps is the any-work flag synchronised, so
-at ``eval_every=8`` seven of every eight rollouts never wait for the device.
-``_expand_batch`` and its ``write_rows`` launch run only when that flag is
-true; the JAX package calls them on every rollout with an all-false mask
-when there is no work, which writes nothing, so the results are the same.
+A step that is not an eval step is the kernel and nothing else (the JAX
+package's ``lax.cond(any_work, …)`` is false there and every write is
+dropped), and the JAX package runs the steps in a ``lax.scan`` under
+``jit``.  Here ``run_search`` groups the steps so that every group ends on
+an eval step and gives each group to one kernel launch: at ``eval_every=8``
+a launch runs eight rollouts per tree back to back on the device, with no
+host work between them.  ``search_step`` is a group of one.  The eval phase
+is decided on the host: only on eval steps is the any-work flag
+synchronised, and ``_expand_batch`` with its ``write_rows`` launch runs only
+when that flag is true; the JAX package calls them on every rollout with an
+all-false mask when there is no work, which writes nothing, so the results
+are the same.
 
 Not in this slice (they raise ``NotImplementedError``): the non-kernel
 search path (``use_kernel=False``), simulation mode (``no_sim=False``) and
@@ -114,33 +120,30 @@ def init_trees(root_states: GoState, ev: Evaluator, params, cfg: SearchConfig) -
     return tr.set_leaf_value(trees, trees.root, vals)
 
 
-def _search_step_kernel(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, step_idx: int) -> Tree:
-    """One rollout on every tree through the rollout kernels."""
+def launch_rollouts(trees: Tree, ev: Evaluator, cfg: SearchConfig, rollouts: int) -> torch.Tensor:
+    """``rollouts`` consecutive rollouts on every tree in one kernel launch
+    (tree stats and root stats updated in place, no device sync); returns the
+    kernel's ``res`` for the last of them."""
     has_value = ev.has_value
-    res = rollout.descend_backprop(
+    return rollout.descend_backprop(
         trees.pstats,
         trees.value,
         trees.root,
+        trees.root_stats,
         c=cfg.exploration_weight,
         w=_mix_weight(cfg, has_value),
         use_value=has_value,
         levels=cfg.kernel_levels,
+        rollouts=rollouts,
     )
+
+
+def evaluate_leaves(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, res: torch.Tensor) -> Tree:
+    """The eval phase of an eval step: value and expand the leaves that the
+    rollout described by ``res`` reached, where any tree has work."""
     kd = rollout.unpack(res)
-    root_sign = torch.where(kd.depth % 2 == 0, 1.0, -1.0)
-    zeros = torch.zeros_like(root_sign)
-    root_upd = torch.stack(
-        [torch.ones_like(root_sign), zeros, root_sign * kd.leaf_val if has_value else zeros],
-        dim=-1,
-    )
-    old_root_n = trees.root_stats[:, 0].clone()
-    trees.root_stats += root_upd
-
-    if cfg.eval_every > 1 and step_idx % cfg.eval_every != 0:
-        return trees  # not an eval step: no device sync
-
     leaves = kd.leaf
-    leaf_visits = torch.where(kd.depth > 0, kd.leaf_n, old_root_n)
+    leaf_visits = torch.where(kd.depth > 0, kd.leaf_n, kd.root_n)
     # A depth-0 leaf is an unexpanded root: the self-play loop checks root
     # terminality, so only deeper leaves read the C_TERM flag.
     leaf_terminal = (kd.depth > 0) & (kd.leaf_terminal > 0)
@@ -166,19 +169,50 @@ def _search_step_kernel(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, s
     return tr.set_leaf_value(trees, leaves, vals)
 
 
-def search_step(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, step_idx: int = 0) -> Tree:
-    """One synchronised rollout across every tree (in place)."""
+def _rollout_group(
+    trees: Tree, ev: Evaluator, params, cfg: SearchConfig, rollouts: int, evaluate: bool
+) -> Tree:
+    res = launch_rollouts(trees, ev, cfg, rollouts)
+    return evaluate_leaves(trees, ev, params, cfg, res) if evaluate else trees
+
+
+def _check_ported(cfg: SearchConfig) -> None:
     if not (cfg.use_kernel and cfg.no_sim):
         raise NotImplementedError(
             "only the kernel path (use_kernel=True, no_sim=True) is ported yet"
         )
-    return _search_step_kernel(trees, ev, params, cfg, step_idx)
+
+
+def _is_eval_step(cfg: SearchConfig, step_idx: int) -> bool:
+    return cfg.eval_every <= 1 or step_idx % cfg.eval_every == 0
+
+
+def search_step(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, step_idx: int = 0) -> Tree:
+    """One synchronised rollout across every tree (in place)."""
+    _check_ported(cfg)
+    return _rollout_group(trees, ev, params, cfg, 1, _is_eval_step(cfg, step_idx))
+
+
+def rollout_groups(n_rollouts: int, eval_every: int) -> list[tuple[int, bool]]:
+    """Steps ``0..n_rollouts-1`` cut into runs that each end on an eval step
+    (``step % eval_every == 0``; every step when ``eval_every <= 1``), as
+    ``(length, True)``, and the steps after the last eval step as
+    ``(length, False)``."""
+    groups, start = [], 0
+    for stop in range(0, n_rollouts, max(eval_every, 1)):
+        groups.append((stop - start + 1, True))
+        start = stop + 1
+    if start < n_rollouts:
+        groups.append((n_rollouts - start, False))
+    return groups
 
 
 def run_search(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, n_rollouts: int) -> Tree:
-    """``n_rollouts`` synchronised rollouts."""
-    for i in range(n_rollouts):
-        trees = search_step(trees, ev, params, cfg, i)
+    """``n_rollouts`` synchronised rollouts, one kernel launch per run of
+    steps up to and including the next eval step."""
+    _check_ported(cfg)
+    for length, evaluate in rollout_groups(n_rollouts, cfg.eval_every):
+        trees = _rollout_group(trees, ev, params, cfg, length, evaluate)
     return trees
 
 

@@ -4,9 +4,11 @@
 
 Phases (any failure exits non-zero; nothing is caught):
  1. build the CUDA kernels from ``bokego_tpu_torch/ops/csrc`` with nvcc;
- 2. K1 ``descend_backprop`` against its plain PyTorch version on trees
-    warmed by the port's own search (B=1024, Nmax=512, levels=6), at the
-    main path's c and w and at w=0.5 with random Wq on deeper descents;
+ 2. K1 ``descend_backprop`` on trees warmed by the port's own search
+    (B=1024, Nmax=512, levels=6), at the main path's c and w and at w=0.5
+    with random Wq on deeper descents: one launch of 8 rollouts against its
+    plain PyTorch version at 8 rollouts and against 8 launches of one
+    rollout, everything bit for bit; timed at 1 and at 8 rollouts a launch;
  3. K2 ``write_rows`` against its plain version, masks all false, all true
     and mixed;
  4. the nets on the GPU against the same nets on the CPU, TF32 off;
@@ -15,7 +17,10 @@ Phases (any failure exits non-zero; nothing is caught):
     rollouts/move, eval_every=8, kernel_levels=6, expand_thresh=100,
     max_nodes=512) with a seeded random-init 128-channel policy and the
     shipped ``data/weights/value_r2.pt`` for MOVES moves, launch counts read
-    around it.
+    around it (51 K1 launches and 400 K1 rollouts a move); then PAIR_MOVES
+    moves each of the search as it is (a launch per group of rollouts) and of
+    a loop of ``search_step`` (a launch per rollout), in turns, for paired
+    ms/move.
 
 The last two lines of standard output are the kernels' JSON record and the
 device line ``{"ok": true, "device": {...}}``; the line before them is
@@ -35,7 +40,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-MOVES = 80  # self-play moves of the main path: ~40 s of a ~60 s run on an H100
+MOVES = 80  # self-play moves of the main path: most of the run's time on an H100
+PAIR_MOVES = 5  # moves per turn of the paired grouped / per-rollout timing
+FUSED = 8  # rollouts per launch in the K1 check: the main path's eval_every
 
 
 def log(msg: str) -> None:
@@ -85,6 +92,41 @@ def time_ms(fn, iters: int) -> tuple[float, float]:
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_work(results, parent, levels: int, planes: int) -> tuple[int, int]:
+    """Bytes and operations that the rollouts described by ``results`` (one
+    kernel ``res`` per rollout, all from one call) need: every stats row
+    walked through read once (81 actions of ``planes`` planes; the child
+    plane alone for a leaf's row, read to find it childless), every updated
+    edge written once (N, Wv), every leaf value read once, and per tree the
+    root, the root stats in and out, one child-terminal float and the result
+    row.  The paths are rebuilt from the leaves through ``parent``."""
+    from bokego_tpu_torch.ops.rollout import unpack
+
+    batch = parent.shape[0]
+    ar = torch.arange(batch, device=parent.device)
+    inner = torch.zeros_like(parent, dtype=torch.bool)
+    leaf_rows, edges, leaves = inner.clone(), inner.clone(), inner.clone()
+    walked = 0
+    for res in results:
+        kd = unpack(res)
+        node, left = kd.leaf, kd.depth.clone()
+        leaves[ar, node] = True
+        early = kd.depth < levels
+        leaf_rows[ar[early], node[early]] = True
+        walked += int(kd.depth.sum())
+        for _ in range(levels):
+            on = left > 0
+            edges[ar[on], node[on]] = True
+            node = torch.where(on, parent[ar, node], node)
+            inner[ar[on], node[on]] = True
+            left -= 1
+    n_bytes = (
+        int(inner.sum()) * 81 * planes * 4 + int((leaf_rows & ~inner).sum()) * 81 * 4
+        + int(edges.sum()) * 8 + int(leaves.sum()) * 4 + batch * (8 + 12 + 12 + 4 + 512)
+    )
+    return n_bytes, walked * 81 * 12
 
 
 def main() -> int:
@@ -145,50 +187,70 @@ def main() -> int:
         "main": (trees.pstats, dict(c=CFG.exploration_weight, w=1.0, use_value=True, levels=6)),
         "w0.5": (pstats_wq, dict(c=1.0, w=0.5, use_value=True, levels=6)),
     }
-    k1_err, depths = 0.0, {}
+    k1_err, depths, singles = 0.0, {}, {}
     for name, (pstats, kw) in cases.items():
-        p_kernel, p_plain = pstats.clone(), pstats.clone()
-        res_k = rollout.descend_backprop(p_kernel, trees.value, trees.root, **kw)
-        res_p = rollout.descend_backprop_plain(p_plain, trees.value, trees.root, **kw)
+        p_fused, p_plain, p_single = pstats.clone(), pstats.clone(), pstats.clone()
+        rs_fused, rs_plain, rs_single = (trees.root_stats.clone() for _ in range(3))
+        res_f = rollout.descend_backprop(p_fused, trees.value, trees.root, rs_fused, rollouts=FUSED, **kw)
+        res_p = rollout.descend_backprop_plain(p_plain, trees.value, trees.root, rs_plain, rollouts=FUSED, **kw)
+        singles[name] = [
+            rollout.descend_backprop(p_single, trees.value, trees.root, rs_single, **kw) for _ in range(FUSED)
+        ]
         torch.cuda.synchronize()
-        depths[name] = depth = rollout.unpack(res_k).depth
-        check(torch.equal(res_k[:, [0, 1, 2, 4, 5]], res_p[:, [0, 1, 2, 4, 5]]), f"K1 result fields differ ({name})")
-        check(torch.equal(res_k[:, 6:], res_p[:, 6:]), f"K1 result padding differs ({name})")
-        v_err = float((res_k[:, 3] - res_p[:, 3]).abs().max())
-        wv_err = float((p_kernel[:, :, C_WV] - p_plain[:, :, C_WV]).abs().max())
-        other = [c for c in range(8) if c != C_WV]
-        check(torch.equal(p_kernel[:, :, other], p_plain[:, :, other]), f"K1 counts/planes differ ({name})")
-        k1_err = max(k1_err, v_err, wv_err)
-        check(k1_err <= 1e-6, f"K1 Wv/v differ by {k1_err} ({name})")
+        depths[name] = depth = rollout.unpack(singles[name][0]).depth
+        for other, res, p, rs in (
+            (f"plain version at {FUSED} rollouts", res_p, p_plain, rs_plain),
+            (f"{FUSED} launches of one rollout", singles[name][-1], p_single, rs_single),
+        ):
+            check(torch.equal(res_f, res), f"K1 result differs from {other} ({name})")
+            check(torch.equal(p_fused, p), f"K1 pstats differ from {other} ({name})")
+            check(torch.equal(rs_fused, rs), f"K1 root stats differ from {other} ({name})")
+            k1_err = max(
+                k1_err, float((res_f - res).abs().max()), float((p_fused - p).abs().max()),
+                float((rs_fused - rs).abs().max()),
+            )
+        check(torch.equal(rs_fused[:, 0], trees.root_stats[:, 0] + FUSED), f"K1 root visits ({name})")
+        check(not torch.equal(p_fused, pstats), f"K1 wrote nothing ({name})")
         hist = torch.bincount(depth.long(), minlength=7).tolist()
-        log(f"K1 {name} {kw}: exact counts, Wv/v err {max(v_err, wv_err):.3g}; depths 0..6: {hist}")
-        del p_kernel, p_plain
+        log(
+            f"K1 {name} {kw}: {FUSED} fused rollouts equal the plain version and {FUSED} launches "
+            f"bit for bit (tolerance 0); first rollout's depths 0..6: {hist}"
+        )
+        del p_fused, p_plain, p_single
     deep = int((depths["w0.5"] >= 3).sum())
     check(deep >= BATCH // 4, f"warm trees too shallow: {deep} of {BATCH} w0.5 descents reach depth 3")
-    # Timing and bound at the main path's setting.
+    # Timing and bounds at the main path's setting, at 1 and at FUSED rollouts
+    # a launch.  The bound counts the bytes the function needs (k1_work); the
+    # wider count beside it is every loaded row at 6 planes x 128 lanes.
     kw, depth = cases["main"][1], depths["main"]
-    p_kernel, p_plain = trees.pstats.clone(), trees.pstats.clone()
-    # bytes this run's descents need: 6 planes of each loaded row, root and
-    # leaf value, the 512-byte result row, and N (+Wv) per traversed edge
     rows_loaded = torch.clamp(depth + 1, max=kw["levels"]).sum().item()
-    edges = depth.sum().item()
-    k1_bytes = rows_loaded * 6 * 128 * 4 + BATCH * (8 + 4 + 512) + edges * 8
-    k1_ops = rows_loaded * 128 * 12
-    k1_ms, k1_eager = time_ms(lambda: rollout.descend_backprop(p_kernel, trees.value, trees.root, **kw), 200)
-    k1_plain, k1_plain_eager = time_ms(
-        lambda: rollout.descend_backprop_plain(p_plain, trees.value, trees.root, **kw), 20
-    )
-    b_ms, b_by = bound_ms(k1_bytes, k1_ops)
-    records["descend_backprop"] = dict(
-        max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None
-    )
+    wide_bytes = rows_loaded * 6 * 128 * 4 + BATCH * (8 + 4 + 512) + depth.sum().item() * 8
+    k1 = {}
+    for n_roll, iters, plain_iters in ((1, 200, 20), (FUSED, 100, 5)):
+        p_kernel, p_plain = trees.pstats.clone(), trees.pstats.clone()
+        rs_kernel, rs_plain = trees.root_stats.clone(), trees.root_stats.clone()
+        ms, eager = time_ms(
+            lambda: rollout.descend_backprop(p_kernel, trees.value, trees.root, rs_kernel, rollouts=n_roll, **kw), iters
+        )
+        plain, plain_eager = time_ms(
+            lambda: rollout.descend_backprop_plain(p_plain, trees.value, trees.root, rs_plain, rollouts=n_roll, **kw),
+            plain_iters,
+        )
+        n_bytes, n_ops = k1_work(singles["main"][:n_roll], trees.parent, kw["levels"], planes=4)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        k1[n_roll] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        log(
+            f"K1 descend_backprop rollouts/launch={n_roll}: B={BATCH} Nmax={warm_cfg.max_nodes} levels=6 "
+            f"max_depth={int(depth.max())} mean_depth={depth.float().mean():.3f}; kernel_ms={ms:.5f} "
+            f"({1e3 * ms / n_roll:.3f} us/rollout) plain_ms={plain:.5f} bound_ms={b_ms:.5f} ({b_by}, {n_bytes} B needed); "
+            f"eager launches: kernel_ms={eager:.5f} plain_ms={plain_eager:.5f}"
+        )
+        del p_kernel, p_plain
     log(
-        f"K1 descend_backprop: B={BATCH} Nmax={warm_cfg.max_nodes} levels=6 max_depth={int(depth.max())} "
-        f"mean_depth={depth.float().mean():.3f} exact counts, Wv err {k1_err:.3g}; "
-        f"kernel_ms={k1_ms:.5f} plain_ms={k1_plain:.5f} bound_ms={b_ms:.5f} ({b_by}, {k1_bytes} B); "
-        f"eager launches: kernel_ms={k1_eager:.5f} plain_ms={k1_plain_eager:.5f}"
+        f"K1 wide count at 1 rollout (6 planes x 128 lanes of every loaded row): {wide_bytes} B, "
+        f"bound_ms={bound_ms(wide_bytes, rows_loaded * 128 * 12)[0]:.5f}"
     )
-    del p_plain
+    records["descend_backprop"] = dict(max_abs_err=k1_err, library_ms=None, rollouts_per_launch=FUSED, **k1[FUSED])
 
     # 3. K2 with masks all false, all true, mixed.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -230,7 +292,7 @@ def main() -> int:
         f"kernel_ms={k2_ms:.5f} plain_ms={k2_plain:.5f} library_ms={k2_lib:.5f} bound_ms={b_ms:.5f}; "
         f"eager launches: kernel_ms={k2_eager:.5f} plain_ms={k2_plain_eager:.5f} library_ms={k2_lib_eager:.5f}"
     )
-    del scratch, trees, base, p_kernel
+    del scratch, trees, base, singles
 
     # 4. nets on the GPU vs the CPU (TF32 off), on the random-game positions.
     fts = features_batch(roots)[:256]
@@ -258,8 +320,12 @@ def main() -> int:
     res = selfplay(params, ev, CFG, BATCH, MOVES, CFG.n_rollouts, device=dev)
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
-    counts = dict(rollout.launches)
+    counts, k1_rollouts = dict(rollout.launches), rollout.kernel_rollouts
     check(all(n > 0 for n in counts.values()), f"a kernel of the main path never launched: {counts}")
+    groups = mcts.rollout_groups(CFG.n_rollouts, CFG.eval_every)
+    check(len(groups) == 51, f"{len(groups)} rollout groups a move, expected 51")
+    check(counts["descend_backprop"] == 51 * MOVES, f"K1 launches {counts['descend_backprop']}, expected {51 * MOVES}")
+    check(k1_rollouts == CFG.n_rollouts * MOVES, f"K1 rollouts {k1_rollouts}, expected {CFG.n_rollouts * MOVES}")
     check(res.actions.shape == (MOVES, BATCH), f"actions shape {tuple(res.actions.shape)}")
     check(not bool(res.final.invalid.any()), "an illegal move was played")
     check(bool(torch.isfinite(res.scores).all()), "non-finite scores")
@@ -268,7 +334,40 @@ def main() -> int:
     log(
         f"selfplay: B={BATCH} moves={MOVES} rollouts/move={CFG.n_rollouts} "
         f"ms/move={ms_move:.2f} rollouts/s={BATCH * CFG.n_rollouts / (ms_move / 1e3):.1f} "
-        f"launches={counts} peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f"launches={counts} K1_rollouts={k1_rollouts} peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}"
+    )
+
+    # Paired: the search as it is (a K1 launch per group of rollouts) and a
+    # loop of search_step (a launch per rollout), in turns from the same
+    # opening; both must play the same games.
+    def stepped(t):
+        for i in range(CFG.n_rollouts):
+            t = mcts.search_step(t, ev, params, CFG, i)
+        return t
+
+    def play(run):
+        states = st.new_game_batch(BATCH, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(PAIR_MOVES):
+            t = run(mcts.init_trees(states, ev, params, CFG))
+            states = rules.step(states, mcts.choose_action(t))
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / PAIR_MOVES, states
+
+    def grouped(t):
+        return mcts.run_search(t, ev, params, CFG, CFG.n_rollouts)
+
+    turns = [("per_rollout", stepped), ("grouped", grouped), ("grouped", grouped), ("per_rollout", stepped)]
+    pair_ms, finals = {"per_rollout": [], "grouped": []}, []
+    for how, run in turns:
+        ms, final = play(run)
+        pair_ms[how].append(round(ms, 2))
+        finals.append(final.board)
+    check(all(torch.equal(finals[0], f) for f in finals[1:]), "grouped and per-rollout searches played different games")
+    log(
+        f"paired ms/move over {PAIR_MOVES} moves each, in turns (per_rollout, grouped, grouped, per_rollout): "
+        f"grouped={pair_ms['grouped']} per_rollout={pair_ms['per_rollout']}; same games"
     )
     log(f"total: {time.monotonic() - t_start:.1f} s")
 

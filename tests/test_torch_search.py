@@ -49,6 +49,51 @@ def test_search_matches_jax_kernel_path():
     assert trollout.launches == {"descend_backprop": 0, "write_rows": 0}
 
 
+@pytest.mark.parametrize(
+    "n_rollouts,eval_every", [(100, 2), (21, 8), (5, 8), (7, 1), (0, 8)]
+)
+def test_grouped_run_search_matches_steps_and_jax(n_rollouts, eval_every):
+    """``run_search`` (one kernel call per run of steps that ends on an eval
+    step) against a loop of ``search_step`` and against the JAX kernel path."""
+    cfg = dict(BASE, expand_thresh=3, eval_every=eval_every)
+    js = random_positions(23, 8, 14, pass_prob=0.05)
+    jev = jax_fake_evaluator()
+    jt = jmcts.init_trees(jax.random.PRNGKey(0), js, jev, None, JConfig(**cfg))
+    jt = jax.jit(lambda t: jmcts.run_search(jax.random.PRNGKey(0), t, jev, None, JConfig(**cfg), n_rollouts))(jt)
+
+    tcfg, tev = TConfig(**cfg), fake_evaluator()
+    grouped = tmcts.run_search(tmcts.init_trees(to_port(js), tev, None, tcfg), tev, None, tcfg, n_rollouts)
+    stepped = tmcts.init_trees(to_port(js), tev, None, tcfg)
+    for i in range(n_rollouts):
+        stepped = tmcts.search_step(stepped, tev, None, tcfg, i)
+    for f in TREE_FIELDS:
+        np.testing.assert_array_equal(getattr(grouped, f).numpy(), getattr(stepped, f).numpy(), err_msg=f)
+        np.testing.assert_array_equal(getattr(grouped, f).numpy(), np.asarray(getattr(jt, f)), err_msg=f)
+    assert_states_equal(jt.nodes, grouped.nodes, fields=("board", "ko", "turn", "last_move"))
+    np.testing.assert_array_equal(
+        tmcts.choose_action(grouped).numpy(), np.asarray(jax.vmap(jmcts.choose_action)(jt))
+    )
+    np.testing.assert_array_equal(grouped.root_stats[:, 0].numpy(), np.full(8, n_rollouts, np.float32))
+
+
+@pytest.mark.parametrize(
+    "n_rollouts,eval_every,want",
+    [
+        (400, 8, [(1, True)] + [(8, True)] * 49 + [(7, False)]),
+        (21, 8, [(1, True), (8, True), (8, True), (4, False)]),
+        (5, 8, [(1, True), (4, False)]),
+        (17, 8, [(1, True), (8, True), (8, True)]),
+        (3, 1, [(1, True)] * 3),
+        (0, 8, []),
+    ],
+)
+def test_rollout_groups(n_rollouts, eval_every, want):
+    """Every group but a tail ends on an eval step; the lengths add up."""
+    groups = tmcts.rollout_groups(n_rollouts, eval_every)
+    assert groups == want
+    assert sum(n for n, _ in groups) == n_rollouts
+
+
 def test_selfplay_matches_jax_kernel_path():
     cfg = dict(BASE, expand_thresh=3)
     batch, n_moves, n_rollouts = 8, 3, 24
