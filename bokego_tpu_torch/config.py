@@ -1,4 +1,5 @@
-"""Search configuration (copy of ``bokego_tpu.config.SearchConfig``).
+"""Search and engine configuration (copies of ``bokego_tpu.config``'s
+``SearchConfig`` and ``EngineConfig``).
 
 Same fields, defaults and validation.  In the port, ``use_kernel`` selects
 the CUDA rollout kernels (``ops/rollout.py``) and ``kernel_block`` is kept
@@ -59,6 +60,19 @@ class SearchConfig:
             )
 
 
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """GTP engine / serving knobs."""
+
+    time_lim: float | None = 10.0  # seconds per move
+    n_rollouts: int | None = None  # rollout-count mode instead of timed
+    pondering: bool = True  # rollouts while waiting for input
+    resign_threshold: float = 0.1  # surrender if winrate < this
+    resign_turn: int = 50  # ... after this turn
+    komi: float = 5.5
+    forest_size: int = 1  # root-parallel trees
+
+
 # The bench configuration (bench.py, BASELINE.json config 4): the self-play
 # main path that chip_smoke.py drives and measure.py profiles, at B=1024.
 BENCH_CONFIG = SearchConfig(
@@ -66,7 +80,8 @@ BENCH_CONFIG = SearchConfig(
     use_kernel=True, kernel_block=64, kernel_levels=6, eval_every=8,
 )
 BENCH_BATCH = 1024
-# Shipped value-net weights in the reference torch key layout.
-VALUE_WEIGHTS = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "weights", "value_r2.pt"
-)
+# Shipped weights in the reference torch key layout (the policy is the
+# export of data/weights/policy_17_flax by tools/export_policy_torch.py).
+_WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "weights")
+VALUE_WEIGHTS = os.path.join(_WEIGHTS, "value_r2.pt")
+POLICY_WEIGHTS = os.path.join(_WEIGHTS, "policy_17.pt")

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from bokego_tpu_torch.coords import BLACK, EMPTY, NEIGHBORS, NN, PASS_ACTION, WHITE
+from bokego_tpu_torch.coords import BLACK, DIAGONALS, EMPTY, NEIGHBORS, NN, PASS_ACTION, WHITE
 from bokego_tpu_torch.env import zobrist
 from bokego_tpu_torch.env.state import NO_KO, GoState
 
@@ -33,6 +33,9 @@ def _tables(device: torch.device) -> SimpleNamespace:
     i64 = dict(dtype=torch.int64, device=device)
     return SimpleNamespace(
         nbrs=torch.as_tensor(NEIGHBORS, **i64),  # (81, 4), off-board -> NN
+        diags=torch.as_tensor(DIAGONALS, **i64),  # (81, 4), off-board -> NN
+        # 1 where a point has fewer than 4 on-board diagonals (edge, corner)
+        diag_deficit=torch.as_tensor(((DIAGONALS < NN).sum(1) < 4).astype("int64"), **i64),
         zt=torch.as_tensor(zobrist.TABLE.astype("int64"), **i64),  # (3, 81, 2)
         zflip=torch.as_tensor(zobrist.FLIP.astype("int64"), **i64),  # (2,)
         iota=torch.arange(NN, **i64),
@@ -259,6 +262,36 @@ def score(state: GoState) -> torch.Tensor:
     b_area = (colors == BLACK).sum(-1, dtype=torch.float32)
     w_area = (colors == WHITE).sum(-1, dtype=torch.float32)
     return b_area - w_area - state.komi
+
+
+def eye_colors(board: torch.Tensor) -> torch.Tensor:
+    """int8[B, 81]: the colour whose one-point eye each point is, else 0.
+
+    A point is a c-eye iff it is empty, all its on-board neighbours are c,
+    and it has at most one fault: an off-board diagonal deficit counts as
+    one, each diagonal holding the opponent as one.
+    """
+    t = _tables(board.device)
+    board_p = _pad(board, _OFF)
+    nbr_color = board_p[:, t.nbrs]  # (B, 81, 4)
+    off = nbr_color == _OFF
+    diag_color = board_p[:, t.diags]
+    empty = board == EMPTY
+
+    def for_color(c):
+        surrounded = empty & (off | (nbr_color == c)).all(-1) & (~off).any(-1)
+        enemy = (diag_color != _OFF) & (diag_color != c) & (diag_color != EMPTY)
+        return surrounded & (t.diag_deficit + enemy.sum(-1) <= 1)
+
+    is_b, is_w = for_color(BLACK), for_color(WHITE)
+    return torch.where(is_b, BLACK, torch.where(is_w, WHITE, EMPTY)).to(torch.int8)
+
+
+def play_moves(state: GoState, actions: torch.Tensor) -> GoState:
+    """Replay an action sequence ``(T, B)`` on a batch of positions."""
+    for a in actions:
+        state = step(state, a)
+    return state
 
 
 def is_terminal(state: GoState, max_turns: int) -> torch.Tensor:

@@ -13,7 +13,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from bokego_tpu_torch.coords import BLACK, EMPTY, NN, PASS_ACTION, WHITE
+from bokego_tpu_torch.coords import BLACK, EMPTY, FLOWERS9, N, NN, PASS_ACTION, WHITE
 from bokego_tpu_torch.device import resolve_device
 from bokego_tpu_torch.env import zobrist
 
@@ -77,6 +77,11 @@ def new_game_batch(
     )
 
 
+def new_game(komi: float = DEFAULT_KOMI, device=None) -> GoState:
+    """One empty board, black to play, as a batch of one."""
+    return new_game_batch(1, komi, device)
+
+
 def from_board_string(
     board_str: str,
     ko: int | None = None,
@@ -119,3 +124,17 @@ def to_board_string(state: GoState, index: int = 0) -> str:
     """Board ``index`` of a batch -> reference-style 81-char string."""
     dec = {EMPTY: ".", BLACK: "X", WHITE: "O"}
     return "".join(dec[int(c)] for c in state.board[index].cpu().numpy())
+
+
+def render(state: GoState, index: int = 0) -> str:
+    """Pretty-print board ``index`` of a batch, with star points."""
+    cells = list(to_board_string(state, index))
+    for f in FLOWERS9:
+        if cells[f] == ".":
+            cells[f] = "+"
+    header = "\t   " + " ".join("ABCDEFGHJ"[i] for i in range(N))
+    rows = [
+        "\t" + str(i + 1) + "  " + " ".join(cells[N * i : N * (i + 1)])
+        for i in range(N)
+    ]
+    return header + "\n" + "\n".join(rows)

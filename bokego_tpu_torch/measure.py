@@ -1,4 +1,5 @@
-"""Where a self-play move's time goes on the GPU (the port's main path).
+"""Where a self-play move's and a served move's time go on the GPU (the
+port's two main paths).
 
     python -m bokego_tpu_torch.measure
 
@@ -17,6 +18,17 @@ policy and ``data/weights/value_r2.pt``, and prints:
   ``mcts.search``: device time by kernel name, the device-busy share of the
   move's wall time, and the K1 launches and rollouts of that move.
 
+Then the serving path: the GTP engine with the shipped
+``data/weights/policy_17.pt`` and ``value_r2.pt``, in its default
+configuration (non-kernel search, one tree) and as ``--fast --forest 8``,
+each after a warm-up and three generated moves:
+
+* the synchronised host time of one ``genmove`` at ``-r 400`` by phase: the
+  search's chunks, the vote (``_root_child_visits``), the re-root
+  (``advance_root`` + ``compact`` + ``expand_roots``);
+* one more ``genmove`` under ``torch.profiler``: device time by kernel, the
+  device's busy and idle share, K1 and K2 launches.
+
 Needs a GPU; it raises without one.
 """
 
@@ -28,7 +40,7 @@ import time
 
 import torch
 
-from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG as CFG, VALUE_WEIGHTS
+from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG as CFG, POLICY_WEIGHTS, VALUE_WEIGHTS
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.models import nets
 from bokego_tpu_torch.ops import rollout
@@ -79,17 +91,16 @@ def phase_split(states, params, ev) -> tuple[dict[str, float], object]:
     return _finish(states, trees, split)
 
 
-def device_profile(states, params, ev) -> tuple[list[tuple[str, float, int]], float, float]:
+def device_profile(move) -> tuple[list[tuple[str, float, int]], float, float]:
     """Device time by kernel (ms, calls), total device ms and wall ms of one
-    unsynchronised move under torch.profiler."""
+    unsynchronised call of ``move`` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        actions, _ = mcts.search(states, ev, params, CFG)
-        rules.step(states, actions)
+        move()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # Only device-side events: a host op's row repeats its kernels' time.
@@ -100,6 +111,52 @@ def device_profile(states, params, ev) -> tuple[list[tuple[str, float, int]], fl
     ]
     rows.sort(key=lambda r: -r[1])
     return rows, sum(r[1] for r in rows), wall
+
+
+def print_profile(what: str, move) -> None:
+    rollout.reset_launches()
+    rows, dev_ms, wall = device_profile(move)
+    print(
+        f"profiled {what}: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms ({100 * dev_ms / wall:.1f}%), "
+        f"idle {100 - 100 * dev_ms / wall:.1f}%; launches {dict(rollout.launches)}, "
+        f"K1 rollouts {rollout.kernel_rollouts}"
+    )
+    ours = [r for r in rows if "descend_backprop_kernel" in r[0] or "write_rows_kernel" in r[0]]
+    for name, ms, calls in rows[:15] + ours:
+        print(f"  {ms:9.3f} ms  {calls:6d} calls  {1e3 * ms / calls:9.2f} us/call  {name[:90]}")
+
+
+def served_move(dev, params, flags: list[str]) -> None:
+    """Split and profile of one generated move of the GTP engine."""
+    from bokego_tpu_torch import cli
+    from bokego_tpu_torch.config import EngineConfig
+    from bokego_tpu_torch.gtp.engine import GTPEngine
+
+    args = cli.build_parser().parse_args(flags)
+    ecfg = EngineConfig(time_lim=None, n_rollouts=args.r, pondering=False, forest_size=args.forest)
+    eng = GTPEngine(mcts.net_evaluator(), params, cli.search_config(args, dev), ecfg, device=dev)
+    eng.running = True
+    eng.warm_up()
+    for color in ("black", "white", "black"):
+        eng.send(f"genmove {color}")
+    split = {}
+    # the leaf evaluations inside the search, each ended by a synchronise
+    evals, plain_eval = [], mcts._eval_and_expand
+    mcts._eval_and_expand = lambda *a: evals.append(_sync_time(lambda: plain_eval(*a))) or evals[-1][0]
+    try:
+        _, split["search"] = _sync_time(lambda: eng.rollout(args.r))
+    finally:
+        mcts._eval_and_expand = plain_eval
+    evals = [dt for _, dt in evals]
+    visits, split["vote"] = _sync_time(eng._root_child_visits)
+    _, split["re-root"] = _sync_time(lambda: eng._apply_move(max(sorted(visits), key=visits.get)))
+    total = sum(split.values())
+    parts = ", ".join(f"{k} {1e3 * v:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
+    print(
+        f"served move ({' '.join(flags)}): synchronised total {1e3 * total:.2f} ms: {parts}; of the search, "
+        f"{len(evals)} leaf evaluations (features, nets, expansion) {1e3 * sum(evals):.2f} ms"
+    )
+    print_profile(f"served move ({' '.join(flags)})", lambda: eng.send("genmove black"))
 
 
 def main():
@@ -121,16 +178,15 @@ def main():
         total = sum(split.values())
         parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
         print(f"move {m} ({how}): synchronised total {total:.2f} ms: {parts}")
-    rollout.reset_launches()
-    rows, dev_ms, wall = device_profile(states, params, ev)
-    print(
-        f"profiled move: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms ({100 * dev_ms / wall:.1f}%), "
-        f"idle {100 - 100 * dev_ms / wall:.1f}%; launches {dict(rollout.launches)}, "
-        f"K1 rollouts {rollout.kernel_rollouts}"
-    )
-    ours = [r for r in rows if "descend_backprop_kernel" in r[0] or "write_rows_kernel" in r[0]]
-    for name, ms, calls in rows[:15] + ours:
-        print(f"  {ms:9.3f} ms  {calls:6d} calls  {1e3 * ms / calls:9.2f} us/call  {name[:90]}")
+
+    def selfplay_move():
+        actions, _ = mcts.search(states, ev, params, CFG)
+        rules.step(states, actions)
+
+    print_profile("self-play move", selfplay_move)
+    served = {"policy": nets.load_policy(POLICY_WEIGHTS, device=dev), "value": params["value"]}
+    for flags in (["-r", "400"], ["-r", "400", "--fast", "--forest", "8"]):
+        served_move(dev, served, flags)
 
 
 if __name__ == "__main__":

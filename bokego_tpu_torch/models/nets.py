@@ -3,7 +3,7 @@
 
 The modules use the reference torch key layout (``conv.0 … conv.21``,
 ``bn``, ``lin_bn``, ``lin1``, ``lin2``) so the repo's reference-format
-checkpoints (``data/weights/value_r2.pt``) load with ``load_state_dict`` and
+checkpoints (``data/weights/value_r2.pt``, ``data/weights/policy_17.pt``) load with ``load_state_dict`` and
 no conversion.  ``conv`` is a Sequential of seven (conv, BatchNorm, ReLU)
 triples at indices 0..20 and the untied-bias 1x1 head at 21.
 
@@ -99,12 +99,20 @@ def init_value(channels: int = 128, seed: int = 1, device=None) -> ValueNet:
     return net.to(dev).eval()
 
 
-def load_value(path: str, device=None) -> ValueNet:
-    """A reference-format value checkpoint (``{"model_state_dict": …}``)."""
+def _load(cls, path: str, device):
     dev = resolve_device(device)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt)
-    channels = sd["conv.0.weight"].shape[0]
-    net = ValueNet(channels)
+    net = cls(sd["conv.0.weight"].shape[0])
     net.load_state_dict(sd)
     return net.to(dev).eval()
+
+
+def load_policy(path: str, device=None) -> PolicyNet:
+    """A reference-format policy checkpoint (``{"model_state_dict": …}``)."""
+    return _load(PolicyNet, path, device)
+
+
+def load_value(path: str, device=None) -> ValueNet:
+    """A reference-format value checkpoint (``{"model_state_dict": …}``)."""
+    return _load(ValueNet, path, device)

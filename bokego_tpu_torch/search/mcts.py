@@ -1,7 +1,17 @@
-"""Batched PUCT Monte-Carlo tree search, kernel path (counterpart of
+"""Batched PUCT Monte-Carlo tree search (counterpart of
 ``bokego_tpu/search/mcts.py``).
 
-Rollouts run through the fused descend/backprop kernel
+Two rollout paths, chosen by ``SearchConfig.use_kernel``.
+
+The non-kernel path (the serving default) is plain torch: a PUCT walk from
+every root to a leaf, one level at a time with all trees in lockstep
+(:func:`_descend_batch`), then the leaf evaluation with one batched net
+forward and the expansion, then the backprop of the leaf's value up the
+recorded path (:func:`_backprop_batch`): the exact reference cadence at
+``eval_every == 1``; at ``eval_every > 1`` the backprop comes first and
+evaluation runs only on every E-th step, as on the kernel path.
+
+On the kernel path rollouts run through the fused descend/backprop kernel
 (``ops/rollout.descend_backprop``), which also applies the root's own stat
 update; on eval steps the leaves are evaluated with one batched net forward
 and expanded, the parent rows landing through the ``write_rows`` kernel.
@@ -22,13 +32,18 @@ when that flag is true; the JAX package calls them on every rollout with an
 all-false mask when there is no work, which writes nothing, so the results
 are the same.
 
-Not in this slice (they raise ``NotImplementedError``): the non-kernel
-search path (``use_kernel=False``), simulation mode (``no_sim=False``) and
-Dirichlet root noise.
+Serving helpers: Dirichlet root noise (a draw and a pure mixing function),
+:func:`advance_root` / :func:`expand_roots` for subtree reuse between moves,
+:func:`pv_walk` and :func:`root_winrate`.
+
+Not ported yet (they raise ``NotImplementedError``): simulation mode
+(``no_sim=False``) and leaf-parallel search (``leaf_batch > 1``); see
+ROADMAP.md, "Modules to port".
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
@@ -41,7 +56,7 @@ from bokego_tpu_torch.features import features_batch, features_from_tables
 from bokego_tpu_torch.models import inference
 from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.search import tree as tr
-from bokego_tpu_torch.search.tree import Tree, empty_tree, expand_core, gather_states
+from bokego_tpu_torch.search.tree import Tree, empty_tree, expand_core, gather_states, take_rows
 
 
 class Evaluator(NamedTuple):
@@ -100,8 +115,10 @@ def choose_action(trees: Tree) -> torch.Tensor:
 
 
 def _expand_batch(trees: Tree, nodes, probs, need, cfg: SearchConfig, precomputed=None) -> Tree:
-    """Batched expansion; the parent rows land in place through the
-    ``write_rows`` kernel."""
+    """Batched expansion; on the kernel path the parent rows land in place
+    through the ``write_rows`` kernel, else through an indexed torch write."""
+    if not cfg.use_kernel:
+        return tr.expand(trees, nodes, probs, need, cfg.branch_num, cfg.max_turns, precomputed)
     trees, rows, did = expand_core(
         trees, nodes, probs, need, cfg.branch_num, cfg.max_turns, precomputed
     )
@@ -109,12 +126,40 @@ def _expand_batch(trees: Tree, nodes, probs, need, cfg: SearchConfig, precompute
     return trees
 
 
-def init_trees(root_states: GoState, ev: Evaluator, params, cfg: SearchConfig) -> Tree:
-    """Build a batch of trees and expand and value their roots."""
-    if cfg.noise_weight > 0:
-        raise NotImplementedError("Dirichlet root noise is not ported yet")
+def dirichlet_noise(gen: torch.Generator, batch: int, alpha: float, device) -> torch.Tensor:
+    """``(batch, 81)`` draws of Dirichlet(alpha, ..., alpha): gamma draws
+    from ``gen`` (on ``device``), normalised.  Drawn in float64, where a
+    gamma of small ``alpha`` does not underflow to an all-zero row."""
+    conc = torch.full((batch, NN), alpha, dtype=torch.float64, device=device)
+    g = torch._standard_gamma(conc, generator=gen)
+    return (g / g.sum(-1, keepdim=True).clamp(min=1e-300)).float()
+
+
+def mix_noise(probs: torch.Tensor, noise: torch.Tensor, weight: float) -> torch.Tensor:
+    """Root priors with noise mixed in: ``(1 - weight) * probs + weight * noise``."""
+    return (1.0 - weight) * probs + weight * noise
+
+
+def init_trees(
+    root_states: GoState,
+    ev: Evaluator,
+    params,
+    cfg: SearchConfig,
+    gen: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+) -> Tree:
+    """Build a batch of trees and expand and value their roots.  With
+    ``cfg.noise_weight > 0`` the root priors are mixed with ``noise (B, 81)``,
+    drawn from ``gen`` when it is not given."""
+    _check_ported(cfg)
     trees = empty_tree(root_states, cfg.max_nodes, cfg.max_turns)
     probs, vals = _with_values(*ev.evaluate(params, root_states))
+    if cfg.noise_weight > 0:
+        if noise is None:
+            if gen is None:
+                raise ValueError("noise_weight > 0 needs a torch.Generator (or the noise itself)")
+            noise = dirichlet_noise(gen, probs.shape[0], cfg.dirichlet_alpha, probs.device)
+        probs = mix_noise(probs, noise, cfg.noise_weight)
     need = torch.ones_like(trees.root, dtype=torch.bool)
     trees = _expand_batch(trees, trees.root, probs, need, cfg)
     return tr.set_leaf_value(trees, trees.root, vals)
@@ -157,6 +202,102 @@ def evaluate_leaves(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, res: 
     if not bool(need.any() | (kd.leaf_unvalued > 0).any()):
         return trees
 
+    return _eval_and_expand(trees, ev, params, cfg, leaves, need)
+
+
+def _rollout_group(
+    trees: Tree, ev: Evaluator, params, cfg: SearchConfig, rollouts: int, evaluate: bool
+) -> Tree:
+    res = launch_rollouts(trees, ev, cfg, rollouts)
+    return evaluate_leaves(trees, ev, params, cfg, res) if evaluate else trees
+
+
+class _Descent(NamedTuple):
+    """A recorded PUCT walk per tree; level ``i`` holds the edge taken from
+    the node at depth ``i`` (columns past a tree's depth are unused)."""
+
+    leaf: torch.Tensor  # (B,) int64 leaf node
+    rows: torch.Tensor  # (B, L) int64 parent node of each traversed edge
+    acts: torch.Tensor  # (B, L) int64 action of each traversed edge
+    leaf_n: torch.Tensor  # (B,) f32 the leaf's edge visit count (before this rollout)
+    depth: torch.Tensor  # (B,) int64 number of traversed edges
+
+
+def _descend_batch(trees: Tree, cfg: SearchConfig, w: float) -> _Descent:
+    """PUCT walk from every root to a leaf, all trees in lockstep: one row
+    gather per level, finished trees idle, and the loop ends (one host sync
+    per level) once every tree has stopped or ``max_depth - 1`` levels ran.
+    Exact score ties go to the lowest action, as ``argmax`` gives them."""
+    c = cfg.exploration_weight
+    batch = trees.root.shape[0]
+    dev = trees.root.device
+    cur = trees.root
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    leaf_n = torch.zeros(batch, dtype=torch.float32, device=dev)
+    depth = torch.zeros(batch, dtype=torch.int64, device=dev)
+    rows, acts = [], []
+    for _ in range(cfg.max_depth - 1):
+        row = take_rows(trees.pstats, cur)  # (B, 8, 128)
+        kids = row[:, tr.C_CHILD, :NN]
+        valid = kids >= 0
+        # terminal nodes never have children, so "has any child" alone
+        # decides whether a node is internal
+        internal = valid.any(1) & ~done
+        nf = row[:, tr.C_N, :NN]
+        avg = torch.where(
+            nf > 0,
+            ((1.0 - w) * row[:, tr.C_WQ, :NN] + w * row[:, tr.C_WV, :NN]) / nf.clamp(min=1.0),
+            0.0,
+        )
+        total = torch.where(valid, nf, 0.0).sum(1).clamp(min=1.0)
+        score = -avg + c * row[:, tr.C_PRIOR, :NN] * total.sqrt()[:, None] / (1.0 + nf)
+        score = torch.where(valid, score, float("-inf"))
+        best_a = score.argmax(1)
+        best = kids.gather(1, best_a[:, None])[:, 0].long()
+        rows.append(cur)
+        acts.append(torch.where(internal, best_a, 0))
+        leaf_n = torch.where(internal, nf.gather(1, best_a[:, None])[:, 0], leaf_n)
+        depth = torch.where(internal, depth + 1, depth)
+        cur = torch.where(internal, best, cur)
+        done = done | ~internal
+        if bool(done.all()):
+            break
+    return _Descent(leaf=cur, rows=torch.stack(rows, 1), acts=torch.stack(acts, 1), leaf_n=leaf_n, depth=depth)
+
+
+def _backprop_batch(trees: Tree, desc: _Descent, use_value: bool) -> Tree:
+    """Add the visit and the leaf's cached value up every recorded path, the
+    sign flipping per ply, and update the roots' own stats (in place): one
+    ``index_put_(accumulate=True)`` per stat plane.  The edges of one path
+    are distinct, so each takes exactly one add; unused levels add 0."""
+    batch, levels = desc.rows.shape
+    dev = desc.rows.device
+    # NaN = not evaluated yet (possible only at eval_every > 1): backs up 0
+    leaf_val = torch.nan_to_num(take_rows(trees.value, desc.leaf))
+    lvl = torch.arange(levels, device=dev)[None, :]
+    used = lvl < desc.depth[:, None]
+    # the edge at level i leads to the node at depth i + 1: sign (-1)^(depth-i-1)
+    sign = torch.where((desc.depth[:, None] - lvl - 1) % 2 == 0, 1.0, -1.0)
+    b_idx = torch.arange(batch, device=dev)[:, None].expand(batch, levels)
+    plane = torch.zeros_like(desc.rows)
+    trees.pstats.index_put_(
+        (b_idx, desc.rows, plane + tr.C_N, desc.acts), used.float(), accumulate=True
+    )
+    if use_value:
+        trees.pstats.index_put_(
+            (b_idx, desc.rows, plane + tr.C_WV, desc.acts),
+            torch.where(used, sign * leaf_val[:, None], 0.0),
+            accumulate=True,
+        )
+    root_sign = torch.where(desc.depth % 2 == 0, 1.0, -1.0)
+    trees.root_stats[:, 0] += 1.0
+    if use_value:
+        trees.root_stats[:, 2] += root_sign * leaf_val
+    return trees
+
+
+def _eval_and_expand(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, leaves, need) -> Tree:
+    """Value the leaves with one net forward and expand those in ``need``."""
     leaf_states = gather_states(trees.nodes, leaves)
     if ev.evaluate_fts is not None:
         la = rules.leaf_analysis(leaf_states)
@@ -169,17 +310,39 @@ def evaluate_leaves(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, res: 
     return tr.set_leaf_value(trees, leaves, vals)
 
 
-def _rollout_group(
-    trees: Tree, ev: Evaluator, params, cfg: SearchConfig, rollouts: int, evaluate: bool
-) -> Tree:
-    res = launch_rollouts(trees, ev, cfg, rollouts)
-    return evaluate_leaves(trees, ev, params, cfg, res) if evaluate else trees
+def _search_step_plain(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, step_idx: int) -> Tree:
+    """One rollout on every tree without the kernels."""
+    desc = _descend_batch(trees, cfg, _mix_weight(cfg, ev.has_value))
+    leaves = desc.leaf
+    leaf_visits = torch.where(desc.depth > 0, desc.leaf_n, trees.root_stats[:, 0])
+    need = (
+        (leaf_visits > cfg.expand_thresh)
+        & ~take_rows(trees.terminal, leaves)
+        & ~take_rows(trees.expanded, leaves)
+    )
+    work = _is_eval_step(cfg, step_idx) and bool(
+        need.any() | take_rows(trees.value, leaves).isnan().any()
+    )
+    if cfg.eval_every > 1:
+        # delayed valuation, as on the kernel path: backprop with the value
+        # cached so far, then evaluate and expand
+        trees = _backprop_batch(trees, desc, ev.has_value)
+        return _eval_and_expand(trees, ev, params, cfg, leaves, need) if work else trees
+    # the exact reference ordering: evaluate the leaf, then backprop it
+    if work:
+        trees = _eval_and_expand(trees, ev, params, cfg, leaves, need)
+    return _backprop_batch(trees, desc, ev.has_value)
 
 
 def _check_ported(cfg: SearchConfig) -> None:
-    if not (cfg.use_kernel and cfg.no_sim):
+    if not cfg.no_sim:
         raise NotImplementedError(
-            "only the kernel path (use_kernel=True, no_sim=True) is ported yet"
+            "simulation mode (no_sim=False) is not ported yet: ROADMAP.md, modules to port, item 8"
+        )
+    if cfg.leaf_batch > 1:
+        raise NotImplementedError(
+            "leaf-parallel search (leaf_batch > 1) is not ported yet: ROADMAP.md, modules to "
+            "port, item 8 (queued with simulation mode)"
         )
 
 
@@ -190,6 +353,8 @@ def _is_eval_step(cfg: SearchConfig, step_idx: int) -> bool:
 def search_step(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, step_idx: int = 0) -> Tree:
     """One synchronised rollout across every tree (in place)."""
     _check_ported(cfg)
+    if not cfg.use_kernel:
+        return _search_step_plain(trees, ev, params, cfg, step_idx)
     return _rollout_group(trees, ev, params, cfg, 1, _is_eval_step(cfg, step_idx))
 
 
@@ -208,9 +373,14 @@ def rollout_groups(n_rollouts: int, eval_every: int) -> list[tuple[int, bool]]:
 
 
 def run_search(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, n_rollouts: int) -> Tree:
-    """``n_rollouts`` synchronised rollouts, one kernel launch per run of
-    steps up to and including the next eval step."""
+    """``n_rollouts`` synchronised rollouts (steps ``0..n_rollouts-1``); on
+    the kernel path one kernel launch per run of steps up to and including
+    the next eval step."""
     _check_ported(cfg)
+    if not cfg.use_kernel:
+        for i in range(n_rollouts):
+            trees = _search_step_plain(trees, ev, params, cfg, i)
+        return trees
     for length, evaluate in rollout_groups(n_rollouts, cfg.eval_every):
         trees = _rollout_group(trees, ev, params, cfg, length, evaluate)
     return trees
@@ -222,10 +392,87 @@ def search(
     params,
     cfg: SearchConfig,
     n_rollouts: int | None = None,
+    gen: torch.Generator | None = None,
 ) -> tuple[torch.Tensor, Tree]:
     """Fresh-tree search: init, rollouts, choose.  Returns (actions, trees);
-    actions use the device encoding (81 = pass)."""
+    actions use the device encoding (81 = pass).  ``gen`` draws the root
+    noise when ``cfg.noise_weight > 0``."""
     n = cfg.n_rollouts if n_rollouts is None else n_rollouts
-    trees = init_trees(root_states, ev, params, cfg)
+    trees = init_trees(root_states, ev, params, cfg, gen=gen)
     trees = run_search(trees, ev, params, cfg, n)
     return choose_action(trees), trees
+
+
+# ---------------------------------------------------------------------------
+# Serving helpers: tree reuse between moves, analysis.
+
+
+def root_winrate(trees: Tree, w: float) -> torch.Tensor:
+    """(B,) root winrate in [0, 1] from each root's own (N, Wq, Wv); 0 where
+    a root has no visits."""
+    n, q, v = trees.root_stats.unbind(-1)
+    mixed = ((1.0 - w) * q + w * v) / n.clamp(min=1.0)
+    return torch.where(n > 0, (mixed + 1.0) / 2.0, 0.0)
+
+
+def add_root_noise(trees: Tree, noise: torch.Tensor, weight: float) -> Tree:
+    """Mix ``noise (B, 81)`` (see :func:`dirichlet_noise`) into every root's
+    stored priors, in place.
+
+    Child rows store clean priors (expansion writes the raw probabilities;
+    only a root's row is ever noised), so after :func:`advance_root` the new
+    root's row is clean and noising it again gives set-root-time noise."""
+    ar = torch.arange(trees.root.shape[0], device=trees.root.device)
+    prior = trees.pstats[ar, trees.root, tr.C_PRIOR, :NN]
+    trees.pstats[ar, trees.root, tr.C_PRIOR, :NN] = mix_noise(prior, noise, weight)
+    return trees
+
+
+def pv_walk(trees: Tree, root_actions: torch.Tensor, depth: int = 8, index: int = 0) -> torch.Tensor:
+    """Principal variations below ``root_actions (k,)`` at the root of tree
+    ``index``, on the device: follow the most-visited child ``depth`` plies.
+    Returns int64[k, depth] actions, -1 once a line runs out."""
+    pstats = trees.pstats[index]
+    root_row = pstats[trees.root[index]]
+    cur = root_row[tr.C_CHILD].gather(0, root_actions.long()).long()  # (k,)
+    out = []
+    for _ in range(depth):
+        crow = pstats[cur.clamp(min=0)]  # (k, 8, 128)
+        valid = crow[:, tr.C_CHILD, :NN] >= 0
+        cn = torch.where(valid, crow[:, tr.C_N, :NN], -1.0)
+        nxt_a = cn.argmax(1)
+        has = (cur >= 0) & valid.any(1) & (cn.gather(1, nxt_a[:, None])[:, 0] > 0)
+        child = crow[:, tr.C_CHILD, :NN].gather(1, nxt_a[:, None])[:, 0].long()
+        cur = torch.where(has, child, -1)
+        out.append(torch.where(has, nxt_a, -1))
+    return torch.stack(out, 1)
+
+
+def advance_root(trees: Tree, actions: torch.Tensor) -> tuple[Tree, torch.Tensor]:
+    """Re-root each tree at its child for ``actions (B,)``.  Returns
+    ``(trees, ok)``, the new ``Tree`` sharing the pools of the old: ``ok`` is
+    False where no such child exists (a terminal root, an unexpanded action
+    or a pass); such a tree keeps its root and the caller must rebuild.  Off-path nodes stay allocated until
+    :func:`bokego_tpu_torch.search.tree.compact` relabels the kept subtree."""
+    row = take_rows(trees.pstats, trees.root)  # (B, 8, 128)
+    a = actions.clamp(0, NN - 1)[:, None]
+    child = row[:, tr.C_CHILD, :NN].gather(1, a)[:, 0]
+    ok = (child >= 0) & (actions >= 0) & (actions < NN)
+    # the new root's own stats come from its edge entry at the old root
+    new_rs = torch.cat([row[:, ch, :NN].gather(1, a) for ch in (tr.C_N, tr.C_WQ, tr.C_WV)], dim=1)
+    trees = dataclasses.replace(
+        trees,
+        root=torch.where(ok, child.long(), trees.root),
+        root_stats=torch.where(ok[:, None], new_rs, trees.root_stats),
+    )
+    return trees, ok
+
+
+def expand_roots(trees: Tree, ev: Evaluator, params, cfg: SearchConfig) -> Tree:
+    """Make sure every root is expanded and valued: used after
+    :func:`advance_root` lands on a child that was still a leaf."""
+    root_states = gather_states(trees.nodes, trees.root)
+    probs, vals = _with_values(*ev.evaluate(params, root_states))
+    need = ~take_rows(trees.expanded, trees.root)
+    trees = _expand_batch(trees, trees.root, probs, need, cfg)
+    return tr.set_leaf_value(trees, trees.root, vals)

@@ -6,9 +6,10 @@ rows ``pstats f32[B, Nmax, 8, 128]`` (channel planes x lane-padded actions),
 the same layout as the JAX package, so tree state compares array for array
 and the rollout kernels read one contiguous 4 KB row per level.
 
-Unlike the JAX package, the functions here update the tree's tensors in
-place (torch tensors are mutable): a B=1024, Nmax=512 ``pstats`` is 2 GiB,
-and a copy per expansion would double the memory and the traffic.
+Unlike the JAX package, the search's functions update the tree's tensors
+in place (torch tensors are mutable): a B=1024, Nmax=512 ``pstats`` is
+2 GiB, and a copy per expansion would double the memory and the traffic.
+Only :func:`compact`, a permutation of the whole pool, returns new tensors.
 """
 
 from __future__ import annotations
@@ -145,6 +146,88 @@ def expand_core(
     new_row[:, C_CHILD, :NN] = torch.where(write, slots.float(), NO_CHILD)
     new_row[:, C_TERM, :NN] = child_terminal.float()
     return tree, new_row, did
+
+
+def expand(
+    tree: Tree,
+    node: torch.Tensor,
+    probs: torch.Tensor,
+    need: torch.Tensor,
+    branch_num: int | None,
+    max_turns: int,
+    precomputed: tuple[GoState, torch.Tensor] | None = None,
+) -> Tree:
+    """:func:`expand_core` plus the parent-row write as an indexed torch
+    write (the non-kernel search path; the kernel path lands the row through
+    ``ops/rollout.write_rows``)."""
+    tree, new_row, did = expand_core(tree, node, probs, need, branch_num, max_turns, precomputed)
+    ar = torch.arange(node.shape[0], device=node.device)
+    tree.pstats[ar, node] = torch.where(did[:, None, None], new_row, tree.pstats[ar, node])
+    return tree
+
+
+def reachable_from_root(tree: Tree) -> torch.Tensor:
+    """bool[B, Nmax]: the nodes in each current root's subtree.
+
+    Pointer doubling over the parent array: give the root a self-loop, then
+    square the ancestor map log2(Nmax) times; chains through the root
+    saturate at the root, all others (old ancestors, off-path subtrees,
+    unallocated slots) at -1.
+    """
+    n = tree.capacity
+    idx = torch.arange(n, device=tree.parent.device)
+    root = tree.root[:, None]
+    p = torch.where(idx == root, idx, tree.parent)
+    for _ in range(max(1, (n - 1).bit_length())):
+        p = torch.where(p >= 0, p.gather(1, p.clamp(min=0)), -1)
+    return p == root
+
+
+def compact(tree: Tree) -> Tree:
+    """Move each current root's subtree to the head of its pool, freeing
+    every off-path slot for reuse; returns new tensors.
+
+    One permutation per tree relabels the kept subtree into slots ``[0, k)``
+    in their old relative order (a stable sort: children allocate after
+    their parent, so the root lands at slot 0) and resets the rest to pool
+    defaults (stats 0, child -1, value NaN).  Tree structure and every
+    per-edge statistic are unchanged, only slot numbers move, so a search
+    continued after compaction chooses exactly as one continued without it.
+    """
+    batch, n = tree.parent.shape
+    dev = tree.parent.device
+    idx = torch.arange(n, device=dev)
+    ar = torch.arange(batch, device=dev)[:, None]
+    keep = reachable_from_root(tree)
+    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+    new_of_old = torch.empty_like(order).scatter_(1, order, idx.expand(batch, n))
+    k = keep.sum(1)
+    fresh = idx >= k[:, None]
+
+    def take(x):
+        return x[ar, order]
+
+    def relabel(x):
+        return torch.where(x >= 0, new_of_old.gather(1, x.clamp(min=0)), -1)
+
+    pstats = take(tree.pstats)
+    child = pstats[:, :, C_CHILD, :]
+    flat = relabel(child.long().reshape(batch, -1)).reshape(child.shape)
+    pstats[:, :, C_CHILD, :] = flat.float()
+    pstats.masked_fill_(fresh[:, :, None, None], 0.0)
+    pstats[:, :, C_CHILD].masked_fill_(fresh[:, :, None], NO_CHILD)
+    return Tree(
+        nodes=tree.nodes.map(take),
+        parent=torch.where(fresh, -1, relabel(take(tree.parent))),
+        action=torch.where(fresh, -1, take(tree.action)),
+        pstats=pstats,
+        root_stats=tree.root_stats,
+        value=torch.where(fresh, float("nan"), take(tree.value)),
+        expanded=take(tree.expanded) & ~fresh,
+        terminal=take(tree.terminal) & ~fresh,
+        n_nodes=k,
+        root=new_of_old.gather(1, tree.root[:, None])[:, 0],
+    )
 
 
 def set_leaf_value(tree: Tree, node: torch.Tensor, val: torch.Tensor) -> Tree:

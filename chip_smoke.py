@@ -13,17 +13,33 @@ Phases (any failure exits non-zero; nothing is caught):
     and mixed;
  4. the nets on the GPU against the same nets on the CPU, TF32 off;
  5. a small self-play with a deterministic evaluator, GPU against CPU;
- 6. the main path: ``selfplay`` at the bench configuration (B=1024, 400
+ 6. the self-play path: ``selfplay`` at the bench configuration (B=1024, 400
     rollouts/move, eval_every=8, kernel_levels=6, expand_thresh=100,
     max_nodes=512) with a seeded random-init 128-channel policy and the
     shipped ``data/weights/value_r2.pt`` for MOVES moves, launch counts read
-    around it (51 K1 launches and 400 K1 rollouts a move); then PAIR_MOVES
-    moves each of the search as it is (a launch per group of rollouts) and of
-    a loop of ``search_step`` (a launch per rollout), in turns, for paired
-    ms/move.
+    around it (51 K1 launches and 400 K1 rollouts a move);
+ 7. K1 and K2 at the serving path's shapes against their plain versions, bit
+    for bit: B=1 and B=8 at Nmax=512, levels=8, on trees warmed by the port's
+    own search with the shipped nets; B=2 and B=34 at Nmax=65536 (a pool of
+    34 such trees passes 2^31 floats) with every pool reversed, so that the
+    roots sit in the last row and the walks read the highest offsets;
+ 8. the non-kernel search, GPU against CPU, deterministic evaluator: equal
+    trees and chosen actions after ``run_search`` at eval_every 1 and 2, and
+    again after ``advance_root`` + ``compact`` + ``expand_roots`` and a second
+    search; a search continued with and without ``compact`` picks the same;
+ 9. the serving path: the GTP engine in process with the shipped
+    ``policy_17.pt`` and ``value_r2.pt``, a scripted session answered twice,
+    in the default configuration (``-r 400``, non-kernel search, one tree:
+    no kernel launch) and in the ``--fast`` one (``--forest 8 -r 400``: K1
+    and K2, launch counts read around the session): framing, every generated
+    vertex legal on a ``NativeBoard`` referee, no rebuild where the played
+    child was in the tree, ``analyze``, ``final_score``, SGF out and in;
+10. the engine as a process: ``python -m bokego_tpu_torch.cli`` through
+    ``GTPProcess`` for a few moves at ``-r 64``, then one move at ``-t 1``.
 
-The last two lines of standard output are the kernels' JSON record and the
-device line ``{"ok": true, "device": {...}}``; the line before them is
+The last two lines of standard output are the kernels' JSON record (K1 and
+K2 once at the self-play path's shapes and once at the serving path's) and
+the device line ``{"ok": true, "device": {...}}``; the line before them is
 ``nvidia-smi``'s name and power limit.
 """
 
@@ -32,16 +48,20 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-MOVES = 80  # self-play moves of the main path: most of the run's time on an H100
-PAIR_MOVES = 5  # moves per turn of the paired grouped / per-rollout timing
+MOVES = 20  # self-play moves of the self-play path
+SERVE_ROLLOUTS = 400  # rollouts per generated move of the served sessions
+SERVE_FOREST = 8  # trees of the --fast session
 FUSED = 8  # rollouts per launch in the K1 check: the main path's eval_every
 
 
@@ -129,6 +149,397 @@ def k1_work(results, parent, levels: int, planes: int) -> tuple[int, int]:
     return n_bytes, walked * 81 * 12
 
 
+def reverse_pools(trees):
+    """The same trees with every pool reversed: node i moves to slot
+    Nmax-1-i, so the roots sit in the last row of their pools."""
+    import dataclasses
+
+    from bokego_tpu_torch.search.tree import C_CHILD
+
+    top = trees.capacity - 1
+
+    def flip(x):
+        return x.flip(1)
+
+    def relabel(x):
+        return torch.where(x >= 0, top - x, x)
+
+    pstats = flip(trees.pstats)
+    pstats[:, :, C_CHILD] = relabel(pstats[:, :, C_CHILD])
+    return dataclasses.replace(
+        trees, nodes=trees.nodes.map(flip), parent=relabel(flip(trees.parent)), action=flip(trees.action),
+        pstats=pstats, value=flip(trees.value), expanded=flip(trees.expanded),
+        terminal=flip(trees.terminal), root=top - trees.root,
+    )
+
+
+def check_serving_kernels(dev, params, roots) -> dict:
+    """Phase 7; returns the K1 and K2 records at the --fast engine's shapes
+    (B=SERVE_FOREST, Nmax=512, levels=8)."""
+    from bokego_tpu_torch.config import SearchConfig
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.search import mcts
+
+    ev = mcts.net_evaluator()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    records = {}
+    for batch, n_pool, warm_rollouts, flip in ((1, 512, 200, False), (SERVE_FOREST, 512, 200, False), (2, 65536, 64, True), (34, 65536, 64, True)):
+        cfg = SearchConfig(
+            use_kernel=True, eval_every=2, expand_thresh=0, branch_num=8, max_nodes=n_pool, kernel_levels=8
+        )
+        states = roots.map(lambda x: x[:batch].clone())
+        trees = mcts.run_search(mcts.init_trees(states, ev, params, cfg), ev, params, cfg, warm_rollouts)
+        if flip:
+            trees = reverse_pools(trees)
+            check(bool((trees.root == n_pool - 1).all()), "reversed pools: roots not in the last row")
+        kw = dict(c=cfg.exploration_weight, w=1.0, use_value=True, levels=8)
+        shape = f"B={batch} Nmax={n_pool} levels=8"
+        err = 0.0
+        for n_roll in (1, 7, FUSED):
+            p_k, p_p = trees.pstats.clone(), trees.pstats.clone()
+            rs_k, rs_p = trees.root_stats.clone(), trees.root_stats.clone()
+            res_k = rollout.descend_backprop(p_k, trees.value, trees.root, rs_k, rollouts=n_roll, **kw)
+            res_p = rollout.descend_backprop_plain(p_p, trees.value, trees.root, rs_p, rollouts=n_roll, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(res_k, res_p), f"K1 result differs from plain ({shape}, {n_roll} rollouts)")
+            check(torch.equal(p_k, p_p), f"K1 pstats differ from plain ({shape}, {n_roll} rollouts)")
+            check(torch.equal(rs_k, rs_p), f"K1 root stats differ from plain ({shape}, {n_roll} rollouts)")
+            check(not torch.equal(p_k, trees.pstats), f"K1 wrote nothing ({shape})")
+            err = max(
+                err, float((res_k - res_p).abs().max()), float((rs_k - rs_p).abs().max()),
+                float((p_k - p_p).abs().max()),
+            )
+            depth = rollout.unpack(res_k).depth
+            del p_k, p_p
+        check(int(depth.max()) >= 2, f"warm trees too shallow ({shape}): depth {depth.tolist()[:8]}")
+        # K2: masks all false, all true, mixed; nodes in the upper half of the pool
+        node = torch.randint(n_pool // 2, n_pool, (batch,), device=dev, generator=gen)
+        node[-1] = n_pool - 1
+        rows = torch.randn((batch, 8, 128), device=dev, generator=gen)
+        k2_err = 0.0
+        for name, mask in (
+            ("none", torch.zeros(batch, dtype=torch.bool, device=dev)),
+            ("all", torch.ones(batch, dtype=torch.bool, device=dev)),
+            ("mixed", torch.arange(batch, device=dev) % 2 == 0),
+        ):
+            p_k, p_p = trees.pstats.clone(), trees.pstats.clone()
+            rollout.write_rows(p_k, node, rows, mask)
+            rollout.write_rows_plain(p_p, node, rows, mask)
+            torch.cuda.synchronize()
+            check(torch.equal(p_k, p_p), f"K2 differs from plain ({shape}, mask {name})")
+            check(bool(mask.any()) != torch.equal(p_k, trees.pstats), f"K2 wrote wrongly ({shape}, mask {name})")
+            k2_err = max(k2_err, float((p_k - p_p).abs().max()))
+            del p_k, p_p
+        log(
+            f"K1/K2 at {shape}{' (pools reversed)' if flip else ''}: 1, 7 and {FUSED} fused rollouts and three "
+            f"masks equal the plain versions bit for bit (tolerance 0); last depths {depth.tolist()[:8]}"
+        )
+        if (batch, n_pool) == (SERVE_FOREST, 512):
+            # times and bounds at the --fast engine's shapes
+            singles_p, singles_rs = trees.pstats.clone(), trees.root_stats.clone()
+            singles = [
+                rollout.descend_backprop(singles_p, trees.value, trees.root, singles_rs, **kw) for _ in range(FUSED)
+            ]
+            p_k, p_p = trees.pstats.clone(), trees.pstats.clone()
+            rs_k, rs_p = trees.root_stats.clone(), trees.root_stats.clone()
+            ms, eager = time_ms(
+                lambda: rollout.descend_backprop(p_k, trees.value, trees.root, rs_k, rollouts=FUSED, **kw), 100
+            )
+            plain, _ = time_ms(
+                lambda: rollout.descend_backprop_plain(p_p, trees.value, trees.root, rs_p, rollouts=FUSED, **kw), 5
+            )
+            n_bytes, n_ops = k1_work(singles, trees.parent, 8, planes=4)
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            mean_depth = float(rollout.unpack(singles[0]).depth.float().mean())
+            records["descend_backprop"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                rollouts_per_launch=FUSED,
+            )
+            log(
+                f"K1 descend_backprop rollouts/launch={FUSED}: {shape} mean_depth={mean_depth:.3f}; kernel_ms={ms:.5f} "
+                f"plain_ms={plain:.5f} bound_ms={b_ms:.5f} ({b_by}, {n_bytes} B needed); eager kernel_ms={eager:.5f}"
+            )
+            mask = torch.arange(batch, device=dev) % 2 == 0
+            b_idx = mask.nonzero().squeeze(1)
+            n_idx, r_idx = node[b_idx], rows[b_idx]
+            k2_ms, k2_eager = time_ms(lambda: rollout.write_rows(p_k, node, rows, mask), 200)
+            k2_plain, _ = time_ms(lambda: rollout.write_rows_plain(p_k, node, rows, mask), 50)
+            k2_lib, _ = time_ms(lambda: p_k.__setitem__((b_idx, n_idx), r_idx), 200)
+            b_ms, b_by = bound_ms(int(mask.sum()) * 2 * 8 * 128 * 4 + batch * (8 + 1), 0)
+            records["write_rows"] = dict(
+                max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=b_ms, bound_by=b_by, library_ms=k2_lib
+            )
+            log(
+                f"K2 write_rows: {shape} masked={int(mask.sum())}; kernel_ms={k2_ms:.5f} plain_ms={k2_plain:.5f} "
+                f"library_ms={k2_lib:.5f} bound_ms={b_ms:.5f}; eager kernel_ms={k2_eager:.5f}"
+            )
+            del p_k, p_p, singles_p
+        del trees
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_plain_search(dev) -> None:
+    """Phase 8: the non-kernel search on the GPU against the CPU."""
+    from bokego_tpu_torch.config import SearchConfig
+    from bokego_tpu_torch.env import rules, state as st
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.search import mcts, tree as tr
+    from tests.torch_fake_eval import fake_evaluator
+
+    fev = fake_evaluator()
+    roots = st.new_game_batch(4, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(12):
+        legal = rules.legal_mask(roots)[:, :81].float()
+        roots = rules.step(roots, torch.multinomial(legal, 1, generator=gen)[:, 0])
+    fields = ("pstats", "root_stats", "n_nodes", "parent", "action", "value", "expanded", "terminal", "root")
+
+    def same(a, b, what):
+        for f in fields:
+            x, y = getattr(a, f).cpu(), getattr(b, f)
+            check(torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0)), f"non-kernel search GPU vs CPU: {f} differs ({what})")
+        check(torch.equal(mcts.choose_action(a).cpu(), mcts.choose_action(b)), f"chosen actions differ ({what})")
+
+    def grow(cfg, where):
+        states = roots.map(lambda x: x.to(where))
+        return mcts.run_search(mcts.init_trees(states, fev, None, cfg), fev, None, cfg, 100)
+
+    def regrow(cfg, where, compact):
+        """The engine's re-root (with or without compaction) and a second search."""
+        t = grow(cfg, where)
+        t, ok = mcts.advance_root(t, mcts.choose_action(t))
+        check(bool(ok.all()), "advance_root: the chosen child is missing")
+        t = mcts.expand_roots(tr.compact(t) if compact else t, fev, None, cfg)
+        return mcts.run_search(t, fev, None, cfg, 60)
+
+    rollout.reset_launches()
+    for eval_every in (1, 2):
+        cfg = SearchConfig(expand_thresh=3, max_nodes=4096, eval_every=eval_every)
+        gpu, cpu = grow(cfg, dev), grow(cfg, "cpu")
+        same(gpu, cpu, f"eval_every={eval_every}")
+        check(int(gpu.n_nodes.max()) > 82, "non-kernel search did not expand below the root")
+        gpu, cpu = regrow(cfg, dev, True), regrow(cfg, "cpu", True)
+        same(gpu, cpu, f"eval_every={eval_every}, after advance/compact/expand and a second search")
+        check(gpu.root.tolist() == [0] * 4, "compact did not move the roots to slot 0")
+        loose = regrow(cfg, dev, False)
+        check(
+            torch.equal(mcts.choose_action(loose), mcts.choose_action(gpu))
+            and torch.equal(loose.root_stats, gpu.root_stats)
+            and int(gpu.n_nodes.max()) < int(loose.n_nodes.min()),
+            "a search continued with and without compact chose differently",
+        )
+    check(rollout.launches == {"descend_backprop": 0, "write_rows": 0}, "the non-kernel search launched a kernel")
+    log("non-kernel search: GPU equals CPU at eval_every 1 and 2, before and after advance/compact/expand; compact leaves choices unchanged")
+
+
+def serve_session(dev, params, fast: bool) -> dict:
+    """Phase 9: one scripted GTP session in process; returns the launch counts."""
+    from bokego_tpu_torch import cli, native
+    from bokego_tpu_torch.config import EngineConfig
+    from bokego_tpu_torch.coords import squash
+    from bokego_tpu_torch.gtp.engine import GTPEngine
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.search import mcts
+
+    flags = ["-r", str(SERVE_ROLLOUTS), "--no-ponder"] + (["--fast", "--forest", str(SERVE_FOREST)] if fast else [])
+    args = cli.build_parser().parse_args(flags)
+    scfg = cli.search_config(args, dev)
+    check(scfg.use_kernel == fast and scfg.eval_every == (8 if fast else 1), f"unexpected search config {scfg}")
+    ecfg = EngineConfig(time_lim=None, n_rollouts=args.r, pondering=False, forest_size=args.forest)
+    eng = GTPEngine(mcts.net_evaluator(), params, scfg, ecfg, device=dev)
+    eng.running = True
+    name = "--fast --forest 8" if fast else "default"
+    t0 = time.monotonic()
+    eng.warm_up()
+    torch.cuda.synchronize()
+    log(f"engine ({name}): warm-up {time.monotonic() - t0:.2f} s, chunk of 8 rollouts {1e3 * eng._chunk_s:.2f} ms")
+    rollout.reset_launches()
+
+    def ok(cmd, want=None):
+        out = eng.send(cmd)
+        check(out.startswith("= ") and out.endswith("\n\n"), f"{name}: {cmd!r} -> {out!r}")
+        check(want is None or out[2:].strip() == want, f"{name}: {cmd!r} -> {out!r}, expected {want!r}")
+        return out[2:].strip()
+
+    def fail(cmd, want):
+        out = eng.send(cmd)
+        check(out == f"? {want}\n\n", f"{name}: {cmd!r} -> {out!r}, expected an error {want!r}")
+
+    gen_ms, gen_launches, gen_chunks, gen_full = [], [], [], []
+    run_chunk, rollout_n = eng._run_chunk, eng.rollout
+
+    def recorded_chunk(n):
+        gen_chunks[-1].append(n)
+        run_chunk(n)
+
+    def recorded_rollout(n):
+        out = rollout_n(n)
+        gen_full[-1] = eng._pool_full()  # read before the move re-roots and compacts
+        return out
+
+    eng._run_chunk, eng.rollout = recorded_chunk, recorded_rollout
+
+    def genmove(color):
+        """A generated move: legal on the referee, no rebuild, same board."""
+        referee = native.replay(eng._move_history, 5.5)
+        gen_chunks.append([])
+        gen_full.append(False)
+        rebuilds, before = eng.rebuilds, dict(rollout.launches)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        vertex = ok(f"genmove {color}")
+        torch.cuda.synchronize()
+        gen_ms.append((time.monotonic() - t0) * 1e3)
+        gen_launches.append({k: rollout.launches[k] - before[k] for k in before})
+        check(re.fullmatch(r"[A-HJ][1-9]|PASS", vertex) is not None, f"{name}: genmove gave {vertex!r}")
+        referee.play(squash(vertex))  # raises on an illegal move
+        check(eng.state.board[0].cpu().numpy().tolist() == referee.board.tolist(), f"{name}: board differs from the referee's")
+        check(eng.rebuilds == rebuilds, f"{name}: genmove {color} rebuilt the forest though the child was in the tree")
+        return vertex
+
+    check(eng.send("7 protocol_version") == "=7 2\n\n", f"{name}: framing with an id")
+    for cmd in ("boardsize 9", "komi 5.5", "clear_board"):
+        ok(cmd, "")
+    rebuilds = eng.rebuilds
+    ok("play black E5", "")
+    check(eng.rebuilds == rebuilds, f"{name}: play into an expanded root rebuilt the forest")
+    first = genmove("white")
+    ok(f"play white {'A1' if first != 'A1' else 'J9'}", "")  # out of turn: a PASS goes in first
+    check(eng._turn() == 4, f"{name}: out-of-turn play did not insert a pass (turn {eng._turn()})")
+    ok("undo", "")
+    check(eng._turn() == 2, f"{name}: undo did not restore the position before the inserted pass")
+    fail("undo", "cannot undo")
+    fail("play black E5", "illegal move")
+    fail(f"play black {first}", "illegal move")
+    fail("play black Z9", "invalid coordinate")
+    fail("frobnicate", "unknown command 'frobnicate'")
+    for i in range(6):
+        genmove("black" if i % 2 == 0 else "white")
+    check(len(eng._move_history) == 8, f"{name}: history {eng._move_history}")
+    # Count mode: one chunk of 256, then chunks of 8; a move stops short of
+    # that only where the node pool was full when it stopped.
+    full_chunks = [256] * (SERVE_ROLLOUTS // 256) + [8] * (SERVE_ROLLOUTS % 256 // 8)
+    for chunks, pool_full in zip(gen_chunks, gen_full):
+        check(
+            chunks == full_chunks or (pool_full and chunks == full_chunks[: len(chunks)]),
+            f"{name}: a genmove ran the chunks {chunks} (pool full: {pool_full}), expected {full_chunks}",
+        )
+    check(gen_chunks[0] == full_chunks, f"{name}: the first genmove stopped early: {gen_chunks[0]}")
+    if fast:
+        # every K1 launch of a move belongs to a chunk it ran, and none is missing
+        k1 = [g["descend_backprop"] for g in gen_launches]
+        want_k1 = [sum(len(mcts.rollout_groups(c, 8)) for c in chunks) for chunks in gen_chunks]
+        check(k1 == want_k1, f"K1 launches per genmove {k1}, expected {want_k1} from the chunks {gen_chunks}")
+        check(k1[0] == 69, f"K1 launches of a full genmove {k1[0]}, expected 69")
+    # Not claimed: one timed move, then the pondering rate on the next root
+    # (both end early where the node pool fills up first).
+    eng._run_chunk, eng.rollout = run_chunk, rollout_n
+    eng.time_lim, eng.n_rollouts = 1.0, None
+    referee = native.replay(eng._move_history, 5.5)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    vertex = ok("genmove black")
+    torch.cuda.synchronize()
+    timed = time.monotonic() - t0
+    referee.play(squash(vertex))
+    eng.time_lim, eng.n_rollouts = None, SERVE_ROLLOUTS
+    t0, pondered = time.monotonic(), 0
+    while time.monotonic() - t0 < 1.0 and eng.rollout(8):
+        pondered += 8
+    torch.cuda.synchronize()
+    ponder_s = time.monotonic() - t0
+    ponder_note = f"{pondered} rollouts per tree in {ponder_s:.3f} s" + (", then the pool was full" if eng._pool_full() else "")
+    stream = eng.send("analyze white 20")
+    check(next(stream) == "= \n", f"{name}: analyze did not open its stream")
+    for _ in range(3):
+        line = next(stream)
+        check(re.match(r"info move [A-HJ][1-9] visits \d+ winrate \d+ prior \d+ pv [A-HJ][1-9]", line) is not None,
+              f"{name}: analyze line {line!r}")
+    eng._input[0] = "showboard"
+    check(next(stream) == "\n", f"{name}: analyze did not end on input")
+    eng._input[0] = None
+    check("X" in ok("showboard") and "O" in ok("showboard"), f"{name}: showboard")
+    check(re.fullmatch(r"[BW]\+\d+\.\d|0", ok("final_score")) is not None, f"{name}: final_score before the end")
+    ok("play white pass", "")
+    ok("play black pass", "")
+    score = ok("final_score")
+    referee = native.replay(eng._move_history, 5.5)  # an independent board, rebuilt from the moves
+    check(eng.state.board[0].cpu().numpy().tolist() == referee.board.tolist(), f"{name}: final board differs from the referee's")
+    want = referee.resolved_score()
+    check(score == (f"B+{want}" if want > 0 else f"W+{-want}" if want < 0 else "0"),
+          f"{name}: final_score {score} is not the resolved score {want}")
+    history = list(eng._move_history)
+    check(len(history) == 11, f"{name}: history {history}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.sgf")
+        text = ok(f"printsgf {path}")
+        check(text.count(";") == len(history) + 1, f"{name}: printsgf wrote {text!r}")
+        ok("clear_board", "")
+        ok(f"loadsgf {path}", "white")
+    check(eng._move_history == history and eng._turn() == len(history), f"{name}: loadsgf replayed {eng._move_history}")
+    per_gen = {k: sum(g[k] for g in gen_launches) / len(gen_launches) for k in gen_launches[0]}
+    log(
+        f"engine ({name}): genmove at -r {SERVE_ROLLOUTS} ms {[round(x, 1) for x in gen_ms]}; launches per genmove {per_gen}; "
+        f"timed move -t 1: {timed:.3f} s (overrun {timed - 1.0:+.3f} s, chunk {1e3 * eng._chunk_s:.2f} ms) -> {vertex}; "
+        f"pondering {pondered / ponder_s:.0f} rollouts/s per tree x {eng.forest} trees ({ponder_note}); final_score {score}"
+    )
+    ok("quit", "")
+    check(eng.send("protocol_version") is None, f"{name}: the engine answered after quit")
+    counts = dict(rollout.launches)
+    check(all((n > 0) == fast for n in counts.values()), f"{name}: kernel launches of the session {counts}")
+    return counts
+
+
+def serve_process() -> None:
+    """Phase 10: the engine as a subprocess, one process at a time."""
+    from bokego_tpu_torch import native
+    from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
+    from bokego_tpu_torch.coords import squash
+    from bokego_tpu_torch.gtp.process import GTPProcess
+
+    base = f"{sys.executable} -m bokego_tpu_torch.cli --no-ponder -p {POLICY_WEIGHTS} -v {VALUE_WEIGHTS}"
+    for label, flags, moves in (("count", "-r 64 --fast --forest 8", 4), ("timed", "-t 1", 1)):
+        t0 = time.monotonic()
+        proc = GTPProcess(label, f"{base} {flags}")
+        try:
+            start_s = time.monotonic() - t0
+            check(proc.name == "bokego-tpu-torch", f"process name {proc.name!r}")
+            proc.boardsize(9), proc.komi(5.5), proc.clear_board()
+            referee = native.NativeBoard(5.5)
+            took = []
+            for i in range(moves):
+                t0 = time.monotonic()
+                vertex = proc.genmove("black" if i % 2 == 0 else "white").upper()
+                took.append(round(time.monotonic() - t0, 3))
+                check(re.fullmatch(r"[A-HJ][1-9]|PASS", vertex) is not None, f"process genmove gave {vertex!r}")
+                referee.play(squash(vertex))
+            check(re.fullmatch(r"[BW]\+\d+\.\d|0", proc.final_score()) is not None, "process final_score")
+            check("X" in proc.showboard(), "process showboard")
+        finally:
+            proc.close()
+        check(proc.subproc.returncode == 0, f"engine process exited with {proc.subproc.returncode}")
+        log(f"engine process ({flags}): started in {start_s:.1f} s, {moves} legal moves in {took} s each, exit code 0")
+
+
+def serving_phases(dev, roots):
+    """Phases 7-10; returns (records, launch counts) of K1/K2 on the --fast
+    engine's path."""
+    from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
+    from bokego_tpu_torch.models import nets
+
+    params = {"policy": nets.load_policy(POLICY_WEIGHTS, device=dev), "value": nets.load_value(VALUE_WEIGHTS, device=dev)}
+    records = check_serving_kernels(dev, params, roots)
+    check_plain_search(dev)
+    default_counts = serve_session(dev, params, fast=False)
+    fast_counts = serve_session(dev, params, fast=True)
+    log(f"served sessions: launches default {default_counts}, --fast {fast_counts}")
+    del params
+    torch.cuda.empty_cache()
+    serve_process()
+    return records, fast_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -145,7 +556,7 @@ def main() -> int:
     from bokego_tpu_torch.ops import build, rollout
     from bokego_tpu_torch.parallel.selfplay import selfplay
     from bokego_tpu_torch.search import mcts
-    from bokego_tpu_torch.search.tree import C_WQ, C_WV
+    from bokego_tpu_torch.search.tree import C_WQ
     from tests.torch_fake_eval import fake_evaluator
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
@@ -337,38 +748,8 @@ def main() -> int:
         f"launches={counts} K1_rollouts={k1_rollouts} peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}"
     )
 
-    # Paired: the search as it is (a K1 launch per group of rollouts) and a
-    # loop of search_step (a launch per rollout), in turns from the same
-    # opening; both must play the same games.
-    def stepped(t):
-        for i in range(CFG.n_rollouts):
-            t = mcts.search_step(t, ev, params, CFG, i)
-        return t
+    records_serving, serve_counts = serving_phases(dev, roots)
 
-    def play(run):
-        states = st.new_game_batch(BATCH, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        for _ in range(PAIR_MOVES):
-            t = run(mcts.init_trees(states, ev, params, CFG))
-            states = rules.step(states, mcts.choose_action(t))
-        torch.cuda.synchronize()
-        return (time.monotonic() - t0) * 1e3 / PAIR_MOVES, states
-
-    def grouped(t):
-        return mcts.run_search(t, ev, params, CFG, CFG.n_rollouts)
-
-    turns = [("per_rollout", stepped), ("grouped", grouped), ("grouped", grouped), ("per_rollout", stepped)]
-    pair_ms, finals = {"per_rollout": [], "grouped": []}, []
-    for how, run in turns:
-        ms, final = play(run)
-        pair_ms[how].append(round(ms, 2))
-        finals.append(final.board)
-    check(all(torch.equal(finals[0], f) for f in finals[1:]), "grouped and per-rollout searches played different games")
-    log(
-        f"paired ms/move over {PAIR_MOVES} moves each, in turns (per_rollout, grouped, grouped, per_rollout): "
-        f"grouped={pair_ms['grouped']} per_rollout={pair_ms['per_rollout']}; same games"
-    )
     log(f"total: {time.monotonic() - t_start:.1f} s")
 
     smi = subprocess.run(
@@ -383,7 +764,10 @@ def main() -> int:
     kernels = [
         dict(
             name=name, route="cuda", source="bokego_tpu_torch/ops/csrc/rollout.cu",
-            replaces=replaces[name], launches=counts[name], **records[name],
+            replaces=replaces[name], path=path, launches=launches[name], **recs[name],
+        )
+        for path, launches, recs in (
+            ("selfplay", counts, records), ("gtp_engine_fast", serve_counts, records_serving)
         )
         for name in ("descend_backprop", "write_rows")
     ]

@@ -1,6 +1,8 @@
-"""GPU tests of the port: the CUDA kernels against their plain versions, and
-GPU self-play against CPU self-play.  Marked ``cuda``; they skip without a
-GPU.  This file imports no JAX, so it also runs where JAX is absent:
+"""GPU tests of the port: the CUDA kernels against their plain versions (at
+the self-play and at the serving shapes), GPU self-play and the non-kernel
+search against their CPU runs, and a short engine session on the card.
+Marked ``cuda``; they skip without a GPU.  This file imports no JAX, so it
+also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -10,11 +12,12 @@ keep the plain versions' order of floating-point operations."""
 import pytest
 import torch
 
-from bokego_tpu_torch.config import SearchConfig
+from bokego_tpu_torch.config import EngineConfig, SearchConfig
 from bokego_tpu_torch.env import rules, state as st
+from bokego_tpu_torch.gtp.engine import GTPEngine
 from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.parallel.selfplay import selfplay
-from bokego_tpu_torch.search import mcts
+from bokego_tpu_torch.search import mcts, tree
 from bokego_tpu_torch.search.tree import C_WQ
 from tests.torch_fake_eval import fake_evaluator
 
@@ -126,3 +129,85 @@ def test_selfplay_gpu_equals_cpu(dev):
     assert torch.equal(r_gpu.final.board.cpu(), r_cpu.final.board)
     assert torch.equal(r_gpu.final.hash.cpu(), r_cpu.final.hash)
     assert torch.equal(r_gpu.scores.cpu(), r_cpu.scores)
+
+
+def _serving_trees(dev, batch: int, n_pool: int, rollouts: int):
+    """Trees of the serving shapes (levels=8), warmed by the port's search."""
+    cfg = SearchConfig(
+        expand_thresh=0, branch_num=8, max_nodes=n_pool, eval_every=2, kernel_levels=8, use_kernel=True,
+    )
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    roots = st.new_game_batch(batch, device=dev)
+    for _ in range(12):
+        legal = rules.legal_mask(roots)[:, :81].float()
+        roots = rules.step(roots, torch.multinomial(legal, 1, generator=gen)[:, 0])
+    ev = fake_evaluator()
+    return mcts.run_search(mcts.init_trees(roots, ev, None, cfg), ev, None, cfg, rollouts)
+
+
+@pytest.mark.parametrize("batch,n_pool", [(1, 512), (8, 512), (2, 65536)])
+def test_kernels_match_plain_at_serving_shapes(dev, batch, n_pool):
+    """K1 (1 and 8 rollouts a launch, levels=8) and K2 against their plain
+    versions at the engine's batch sizes and at the big pool, bit for bit."""
+    trees = _serving_trees(dev, batch, n_pool, 120)
+    kw = dict(c=4.0, w=1.0, use_value=True, levels=8)
+    for n_roll in (1, 8):
+        p_k, p_p = trees.pstats.clone(), trees.pstats.clone()
+        rs_k, rs_p = trees.root_stats.clone(), trees.root_stats.clone()
+        res_k = rollout.descend_backprop(p_k, trees.value, trees.root, rs_k, rollouts=n_roll, **kw)
+        res_p = rollout.descend_backprop_plain(p_p, trees.value, trees.root, rs_p, rollouts=n_roll, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(res_k, res_p) and torch.equal(p_k, p_p) and torch.equal(rs_k, rs_p)
+        assert int(rollout.unpack(res_k).depth.max()) >= 2
+    node = torch.full((batch,), n_pool - 1, device=dev)
+    rows = torch.randn(batch, 8, 128, device=dev)
+    mask = torch.arange(batch, device=dev) % 2 == 0
+    rollout.write_rows(p_k, node, rows, mask)
+    rollout.write_rows_plain(p_p, node, rows, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(p_k[0, n_pool - 1], rows[0])
+
+
+@pytest.mark.parametrize("eval_every", [1, 2])
+def test_non_kernel_search_gpu_equals_cpu(dev, eval_every):
+    """``run_search`` without the kernels, then the engine's re-root and a
+    second search: the same trees on the GPU and on the CPU."""
+    cfg = SearchConfig(expand_thresh=3, max_nodes=1024, eval_every=eval_every)
+    ev = fake_evaluator()
+    out = []
+    rollout.reset_launches()
+    for where in (dev, "cpu"):
+        roots = st.new_game_batch(4, device=where)
+        roots = rules.play_moves(roots, torch.tensor([[40, 30, 20, 10], [41, 31, 21, 11]], device=where))
+        t = mcts.run_search(mcts.init_trees(roots, ev, None, cfg), ev, None, cfg, 80)
+        t, ok = mcts.advance_root(t, mcts.choose_action(t))
+        assert bool(ok.all())
+        t = mcts.expand_roots(tree.compact(t), ev, None, cfg)
+        out.append(mcts.run_search(t, ev, None, cfg, 40))
+    gpu, cpu = out
+    for f in ("pstats", "root_stats", "n_nodes", "parent", "action", "expanded", "terminal", "root"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    assert torch.equal(gpu.value.cpu().nan_to_num(7.0), cpu.value.nan_to_num(7.0))
+    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0}
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["default", "fast_forest2"])
+def test_engine_session_on_the_card(dev, fast):
+    """Ten commands answered on the card; the kernel configuration launches
+    both kernels, the default configuration neither."""
+    cfg = SearchConfig(expand_thresh=2, max_nodes=512)
+    if fast:
+        cfg = SearchConfig(expand_thresh=2, max_nodes=512, use_kernel=True, eval_every=8)
+    ecfg = EngineConfig(time_lim=None, n_rollouts=32, pondering=False, forest_size=2 if fast else 1)
+    eng = GTPEngine(fake_evaluator(), None, cfg, ecfg, device=dev)
+    eng.running = True
+    rollout.reset_launches()
+    replies = [eng.send(c) for c in (
+        "protocol_version", "boardsize 9", "clear_board", "play black E5", "genmove white",
+        "genmove black", "undo", "play black E5", "showboard", "final_score",
+    )]
+    assert [r[0] for r in replies] == ["="] * 7 + ["?", "=", "="]
+    assert replies[0] == "= 2\n\n" and replies[7] == "? illegal move\n\n"
+    assert not bool(eng.state.invalid[0]) and eng._turn() == 2
+    assert all((n > 0) == fast for n in rollout.launches.values())

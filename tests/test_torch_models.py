@@ -94,6 +94,31 @@ def test_value_r2_loads_and_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+def test_policy_17_export_matches_jax():
+    """The committed export ``data/weights/policy_17.pt`` loads into the
+    port's ``PolicyNet`` and gives the logits of the JAX package on the orbax
+    checkpoint it was exported from: within 1e-5 absolute plus 1e-5 relative
+    (trained logits reach a magnitude of 18, where 1e-5 is 5 float32 ulps and
+    the two convolution sum orders differ by more), and the probabilities
+    within 1e-5 absolute."""
+    from bokego_tpu.train import checkpoints
+    from bokego_tpu_torch.config import POLICY_WEIGHTS
+
+    net = tnets.load_policy(POLICY_WEIGHTS, device="cpu")
+    assert isinstance(net, tnets.PolicyNet) and not net.training
+    variables = checkpoints.load_variables(os.path.join(REPO, "data", "weights", "policy_17_flax"))
+    fts = _features(11)
+    want = np.asarray(jinference.policy_logits(variables, fts))
+    got = net(torch.from_numpy(fts)).detach().numpy()
+    assert float(np.abs(want).max()) > 1.0  # trained logits, not a zero net
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=ATOL)
+    np.testing.assert_allclose(
+        tinference.policy_probs(net, torch.from_numpy(fts)).numpy(),
+        np.asarray(jinference.policy_probs(variables, fts)), rtol=0, atol=ATOL,
+    )
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
 def _jax_evaluator():
     """JAX evaluator over small-width nets (the package's net_evaluator
     applies the default 128-channel modules)."""

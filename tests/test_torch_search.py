@@ -1,9 +1,10 @@
-"""Port parity of the whole slice: the kernel-path search and self-play
-against the JAX package's kernel path (Pallas in interpret mode), with the
-deterministic fake evaluator and no root noise.  Exact: every tree array,
-chosen action, final board and score is equal."""
-
-import warnings
+"""Port parity of the search and self-play against the JAX package, with the
+deterministic fake evaluator and no root noise: the kernel path against the
+JAX kernel path (Pallas in interpret mode), the non-kernel path against the
+JAX non-kernel path and against the port's own kernel path.  Exact: every
+tree array, chosen action, final board and score is equal (XLA on the CPU
+does not contract the PUCT score into fused multiply-adds here, so no stat
+differs in the last place and no tolerance is needed)."""
 
 import numpy as np
 import pytest
@@ -105,19 +106,71 @@ def test_selfplay_matches_jax_kernel_path():
     assert not tr.final.invalid.any()
 
 
+PLAIN = dict(no_sim=True, max_turns=80, max_nodes=256, use_kernel=False)
+
+
+@pytest.mark.parametrize(
+    "eval_every,expand_thresh,n_rollouts",
+    [(1, 3, 60), (1, 0, 40), (1, 100, 120), (2, 3, 60), (2, 10, 61)],
+)
+def test_non_kernel_search_matches_jax(eval_every, expand_thresh, n_rollouts):
+    """``run_search`` without the kernels, both orderings: evaluate then
+    backprop at ``eval_every == 1``, backprop then evaluate above."""
+    cfg = dict(PLAIN, eval_every=eval_every, expand_thresh=expand_thresh)
+    js = random_positions(24, 6, 14, pass_prob=0.05)
+    jev = jax_fake_evaluator()
+    jt = jmcts.init_trees(jax.random.PRNGKey(0), js, jev, None, JConfig(**cfg))
+    jt = jax.jit(lambda t: jmcts.run_search(jax.random.PRNGKey(0), t, jev, None, JConfig(**cfg), n_rollouts))(jt)
+
+    trollout.reset_launches()
+    ta, tt = tmcts.search(to_port(js), fake_evaluator(), None, TConfig(**cfg), n_rollouts)
+    for f in TREE_FIELDS:
+        np.testing.assert_array_equal(getattr(tt, f).numpy(), np.asarray(getattr(jt, f)), err_msg=f)
+    assert_states_equal(jt.nodes, tt.nodes, fields=("board", "ko", "turn", "last_move"))
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(jax.vmap(jmcts.choose_action)(jt)))
+    np.testing.assert_array_equal(tt.root_stats[:, 0].numpy(), np.full(6, n_rollouts, np.float32))
+    if expand_thresh < 100:
+        assert int(tt.n_nodes.max()) > 82  # the search expanded below the root
+
+
+@pytest.mark.parametrize("expand_thresh", [3, 10])
+def test_non_kernel_search_matches_kernel_path(expand_thresh):
+    """At ``eval_every=2`` both of the port's paths backprop before they
+    evaluate: same trees, step by step and through ``run_search``."""
+    ts = to_port(random_positions(25, 6, 14, pass_prob=0.05))
+    tev = fake_evaluator()
+    plain_cfg = TConfig(**dict(PLAIN, eval_every=2, expand_thresh=expand_thresh))
+    kernel_cfg = TConfig(**dict(BASE, kernel_levels=8, expand_thresh=expand_thresh))
+    plain = tmcts.run_search(tmcts.init_trees(ts, tev, None, plain_cfg), tev, None, plain_cfg, 60)
+    kernel = tmcts.run_search(tmcts.init_trees(ts, tev, None, kernel_cfg), tev, None, kernel_cfg, 60)
+    stepped = tmcts.init_trees(ts, tev, None, plain_cfg)
+    for i in range(60):
+        stepped = tmcts.search_step(stepped, tev, None, plain_cfg, i)
+    for f in TREE_FIELDS:
+        np.testing.assert_array_equal(getattr(plain, f).numpy(), getattr(kernel, f).numpy(), err_msg=f)
+        np.testing.assert_array_equal(getattr(plain, f).numpy(), getattr(stepped, f).numpy(), err_msg=f)
+    assert int(plain.n_nodes.max()) > 82
+
+
 @pytest.mark.parametrize(
     "cfg",
-    [dict(BASE, use_kernel=False), dict(BASE, no_sim=False)],
-    ids=["non_kernel_path", "simulation_mode"],
+    [dict(BASE, no_sim=False), dict(PLAIN, leaf_batch=4)],
+    ids=["simulation_mode", "leaf_parallel"],
 )
 def test_unported_paths_raise(cfg):
-    """Paths outside this slice raise instead of falling back."""
+    """Paths outside the ported slices raise instead of falling back; the
+    non-kernel path and root noise no longer do."""
     ts = to_port(random_positions(22, 2, 4))
-    trees = tmcts.init_trees(ts, fake_evaluator(), None, TConfig(**cfg))
-    with pytest.raises(NotImplementedError):
-        tmcts.search_step(trees, fake_evaluator(), None, TConfig(**cfg))
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        noisy = TConfig(**dict(BASE, noise_weight=0.25))
-    with pytest.raises(NotImplementedError):
-        tmcts.init_trees(ts, fake_evaluator(), None, noisy)
+    for call in (
+        lambda: tmcts.init_trees(ts, fake_evaluator(), None, TConfig(**cfg)),
+        lambda: tmcts.search_step(None, fake_evaluator(), None, TConfig(**cfg)),
+        lambda: tmcts.run_search(None, fake_evaluator(), None, TConfig(**cfg), 4),
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    plain = TConfig(**dict(PLAIN, noise_weight=0.25))
+    import torch
+
+    trees = tmcts.init_trees(ts, fake_evaluator(), None, plain, gen=torch.Generator().manual_seed(0))
+    trees = tmcts.search_step(trees, fake_evaluator(), None, plain)
+    assert trees.root_stats[:, 0].tolist() == [1.0, 1.0]
