@@ -6,9 +6,10 @@
 ``-t`` seconds per move, ``-r`` rollouts per move (overrides ``-t``),
 ``-p``/``-v`` weights as torch ``.pt`` files in the reference key layout
 (a seeded random init without them), ``--fast`` for the CUDA rollout
-kernels with amortised leaf evaluation.  The engine runs on the GPU and
-raises without one; ``--device cpu`` asks for the CPU.  ``-g`` is accepted
-for interface parity.
+kernels with amortised leaf evaluation, ``--simulate`` for policy playouts
+to the end of the game at every leaf, ``--leaf-batch K`` for K leaf-parallel
+rollouts per step.  The engine runs on the GPU and raises without one;
+``--device cpu`` asks for the CPU.  ``-g`` is accepted for interface parity.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' to run on the CPU)")
     p.add_argument("--simulate", action="store_true",
-                   help="enable simulations to end of game (not ported yet)")
+                   help="enable simulations to end of game")
     p.add_argument("--forest", type=int, default=1,
                    help="number of root-parallel trees")
     p.add_argument("--no-ponder", action="store_true",
@@ -49,7 +50,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-nodes", type=int, default=None,
                    help="node-pool capacity per tree")
     p.add_argument("--leaf-batch", type=int, default=None, dest="leaf_batch",
-                   help="K leaf-parallel rollouts per step (not ported yet)")
+                   help="K leaf-parallel rollouts per step with virtual loss "
+                        "(search/leafpar.py): one K-wide net forward in "
+                        "place of K dependent evaluations at batch 1. "
+                        "Composes with --forest (K x forest leaves per "
+                        "forward); not with --fast (non-kernel path only)")
     p.add_argument("--strong", action="store_true",
                    help="tuned serving preset: expand_thresh=16, "
                         "max_nodes=65536")
@@ -75,20 +80,15 @@ def search_config(args, device):
     """The search configuration the flags select on ``device``."""
     from bokego_tpu_torch.config import SearchConfig
 
-    if args.simulate:
-        raise NotImplementedError(
-            "--simulate is not ported yet: ROADMAP.md, modules to port, item 8"
-        )
-    if args.leaf_batch is not None and args.leaf_batch > 1:
-        raise NotImplementedError(
-            "--leaf-batch is not ported yet: ROADMAP.md, modules to port, item 8 "
-            "(queued with simulation mode)"
-        )
     noise = 0.0 if args.noise is None else args.noise
+    sim = args.simulate
     if args.fast and device.type == "cuda":
-        scfg = SearchConfig(use_kernel=True, eval_every=8, max_nodes=512, noise_weight=noise)
+        # the rollout kernels serve no_sim searches only
+        scfg = SearchConfig(
+            no_sim=not sim, use_kernel=not sim, eval_every=8, max_nodes=512, noise_weight=noise
+        )
     else:
-        scfg = SearchConfig(noise_weight=noise)
+        scfg = SearchConfig(no_sim=not sim, noise_weight=noise)
     overrides = {}
     if args.strong:
         overrides.update(expand_thresh=16, max_nodes=65536)
@@ -96,6 +96,9 @@ def search_config(args, device):
         overrides["expand_thresh"] = args.expand_thresh
     if args.max_nodes is not None:
         overrides["max_nodes"] = args.max_nodes
+    if args.leaf_batch is not None and args.leaf_batch > 1:
+        # leaf-parallel search is non-kernel only: drop --fast's kernel and eval_every
+        overrides.update(leaf_batch=args.leaf_batch, use_kernel=False, eval_every=1)
     return dataclasses.replace(scfg, **overrides)
 
 

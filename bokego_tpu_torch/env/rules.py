@@ -13,6 +13,7 @@ point, the counterpart of the vmapped ``lax.while_loop``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from types import SimpleNamespace
 from typing import NamedTuple
@@ -308,8 +309,8 @@ class LeafAnalysis(NamedTuple):
     legal: torch.Tensor  # bool[B, 82]
 
 
-def leaf_analysis(state: GoState) -> LeafAnalysis:
-    """Move tables plus every hashless successor of each position."""
+def _leaf_analysis(state: GoState) -> tuple[LeafAnalysis, torch.Tensor]:
+    """:func:`leaf_analysis` and the capture table ``cap[b, a, q]`` it used."""
     t = _tables(state.board.device)
     board = state.board
     batch = board.shape[0]
@@ -329,11 +330,32 @@ def leaf_analysis(state: GoState) -> LeafAnalysis:
         komi=state.komi[:, None].expand(batch, NN + 1),
         invalid=state.invalid[:, None].expand(batch, NN + 1),
     )
-    return LeafAnalysis(mt=an.mt, children=children, legal=_pad(an.mt.legal, True))
+    return LeafAnalysis(mt=an.mt, children=children, legal=_pad(an.mt.legal, True)), an.cap
 
 
-def child_states(state: GoState) -> tuple[GoState, torch.Tensor]:
+def leaf_analysis(state: GoState) -> LeafAnalysis:
+    """Move tables plus every hashless successor of each position."""
+    return _leaf_analysis(state)[0]
+
+
+def child_states(state: GoState, with_hash: bool = True) -> tuple[GoState, torch.Tensor]:
     """All 82 successors ``(B, 82, ...)`` (index 81 = pass) and their
-    legality; the hashless form the search uses."""
-    la = leaf_analysis(state)
-    return la.children, la.legal
+    legality.  Rows at illegal points carry garbage (masked by ``legal``).
+
+    ``with_hash=False`` is the form the search uses (trees never read node
+    hashes): it skips the per-child Zobrist XOR-reduce and leaves the hash
+    fields zeroed.  With hashes, every legal successor carries the hash that
+    :func:`step` would give it."""
+    la, cap = _leaf_analysis(state)
+    if not with_hash:
+        return la.children, la.legal
+    t = _tables(state.board.device)
+    me, them = state.turn % 2, (state.turn + 1) % 2
+    ko, new_ko = state.ko, la.children.ko[:, :NN]
+    ko_old = torch.where((ko != NO_KO)[:, None], t.zt[2, ko.clamp(min=0)], 0)  # (B, 2)
+    ko_new = torch.where((new_ko != NO_KO)[..., None], t.zt[2, new_ko.clamp(min=0)], 0)  # (B, 81, 2)
+    cap_xor = _xor_reduce(torch.where(cap[..., None], t.zt[them][:, None], 0), dim=2)
+    h = (state.hash ^ ko_old ^ t.zflip)[:, None, :] ^ t.zt[me] ^ ko_new ^ cap_xor
+    h_pass = state.hash ^ ko_old ^ t.zflip
+    children = dataclasses.replace(la.children, hash=torch.cat([h, h_pass[:, None, :]], dim=1))
+    return children, la.legal

@@ -9,7 +9,9 @@ single-level undo, out-of-turn PASS insertion, surrender rule, count- or
 time-limited rollouts and ``analyze`` streaming as the JAX engine; in count
 mode it runs the same chunks of rollouts (``run_search`` restarts its step
 index in every chunk, so the chunking decides which steps evaluate leaves)
-and so plays the same moves for the same ``-r``.
+and so plays the same moves for the same ``-r``.  With ``leaf_batch`` K > 1
+the chunks run as leaf-parallel steps (``search/leafpar.py``), and in
+simulation mode the engine's one generator draws the playouts.
 
 What differs: there is no compile and no dispatch to amortise, so the timed
 search runs chunks of 8 rollouts against a running per-chunk time measured
@@ -43,7 +45,7 @@ from bokego_tpu_torch.coords import (
 )
 from bokego_tpu_torch.device import resolve_device
 from bokego_tpu_torch.env import rules, state as st
-from bokego_tpu_torch.search import mcts
+from bokego_tpu_torch.search import leafpar, mcts
 from bokego_tpu_torch.search import tree as tr
 from bokego_tpu_torch.search.playout import select_moves
 
@@ -82,7 +84,6 @@ class GTPEngine:
         seed: int = 0,
         device=None,
     ):
-        mcts._check_ported(search_cfg)
         self.ev = evaluator
         self.params = params
         self.scfg = search_cfg
@@ -93,7 +94,7 @@ class GTPEngine:
         self.time_lim = engine_cfg.time_lim
         self.n_rollouts = engine_cfg.n_rollouts
         self.forest = max(1, engine_cfg.forest_size)
-        # one generator for root noise and move sampling
+        # one generator for root noise, move sampling and simulation mode's playouts
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._w = mcts._mix_weight(search_cfg, evaluator.has_value)
         self._clock = time.monotonic
@@ -137,7 +138,16 @@ class GTPEngine:
             self._rebuild()
 
     def _run_chunk(self, n: int):
-        self.trees = mcts.run_search(self.trees, self.ev, self.params, self.scfg, n)
+        """``n`` rollouts on the forest; with ``leaf_batch`` K > 1 as
+        ``ceil(n / K)`` leaf-parallel steps of K, so a K that does not divide
+        the chunk runs more rollouts than the chunk counts."""
+        cfg = self.scfg
+        if cfg.leaf_batch > 1:
+            self.trees = leafpar.run_search_k(
+                self.trees, self.ev, self.params, cfg, n, cfg.leaf_batch, cfg.leaf_vloss, gen=self._gen
+            )
+        else:
+            self.trees = mcts.run_search(self.trees, self.ev, self.params, cfg, n, gen=self._gen)
 
     def _pool_full(self) -> bool:
         """True when some tree cannot fit another expansion (82 slots).

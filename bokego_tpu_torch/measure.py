@@ -20,12 +20,15 @@ policy and ``data/weights/value_r2.pt``, and prints:
 
 Then the serving path: the GTP engine with the shipped
 ``data/weights/policy_17.pt`` and ``value_r2.pt``, in its default
-configuration (non-kernel search, one tree) and as ``--fast --forest 8``,
-each after a warm-up and three generated moves:
+configuration (non-kernel search, one tree), as ``--fast --forest 8``, as
+``--leaf-batch 8``, as ``--leaf-batch 16 --forest 8`` (all at ``-r 400``)
+and as ``--simulate -r 8``, each after a warm-up and three generated moves:
 
-* the synchronised host time of one ``genmove`` at ``-r 400`` by phase: the
-  search's chunks, the vote (``_root_child_visits``), the re-root
-  (``advance_root`` + ``compact`` + ``expand_roots``);
+* the synchronised host time of one ``genmove`` by phase: the search's
+  chunks, the vote (``_root_child_visits``), the re-root (``advance_root``
+  + ``compact`` + ``expand_roots``); and of the search, the leaf
+  evaluations, the leaf-parallel steps' K descents with their virtual
+  losses and their backprops, and simulation mode's playouts;
 * one more ``genmove`` under ``torch.profiler``: device time by kernel, the
   device's busy and idle share, K1 and K2 launches.
 
@@ -35,6 +38,7 @@ Needs a GPU; it raises without one.
 from __future__ import annotations
 
 import collections
+import contextlib
 import subprocess
 import time
 
@@ -44,7 +48,7 @@ from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG as CFG, POLICY_WEI
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.models import nets
 from bokego_tpu_torch.ops import rollout
-from bokego_tpu_torch.search import mcts
+from bokego_tpu_torch.search import leafpar, mcts
 
 MOVES = 3  # synchronised grouped moves played before the stepped and the profiled one
 
@@ -126,6 +130,41 @@ def print_profile(what: str, move) -> None:
         print(f"  {ms:9.3f} ms  {calls:6d} calls  {1e3 * ms / calls:9.2f} us/call  {name[:90]}")
 
 
+# Phases inside a served search, each a function that the search looks up in
+# its module when it calls it: (label, module, function name).
+SEARCH_PHASES = (
+    ("leaf evaluations (features, nets, expansion)", mcts, "_eval_and_expand"),
+    ("leaf evaluations (features, nets, expansion)", leafpar, "_eval_and_expand_k"),
+    ("K descents with virtual loss", leafpar, "_select_k"),
+    ("backprops of K paths", leafpar, "_backprop_k"),
+    ("playouts", mcts, "_simulate"),
+    ("playouts", leafpar, "_simulate"),
+)
+
+
+@contextlib.contextmanager
+def timed_phases(log: dict[str, list[float]]):
+    """While open, every call of a ``SEARCH_PHASES`` function ends in a device
+    synchronise and adds its host time to ``log[label]``."""
+    plain = [(module, name, getattr(module, name)) for _, module, name in SEARCH_PHASES]
+
+    def timed(label, fn):
+        def call(*args, **kwargs):
+            out, dt = _sync_time(lambda: fn(*args, **kwargs))
+            log.setdefault(label, []).append(dt)
+            return out
+
+        return call
+
+    for (label, module, name), (_, _, fn) in zip(SEARCH_PHASES, plain):
+        setattr(module, name, timed(label, fn))
+    try:
+        yield
+    finally:
+        for module, name, fn in plain:
+            setattr(module, name, fn)
+
+
 def served_move(dev, params, flags: list[str]) -> None:
     """Split and profile of one generated move of the GTP engine."""
     from bokego_tpu_torch import cli
@@ -139,22 +178,19 @@ def served_move(dev, params, flags: list[str]) -> None:
     eng.warm_up()
     for color in ("black", "white", "black"):
         eng.send(f"genmove {color}")
-    split = {}
-    # the leaf evaluations inside the search, each ended by a synchronise
-    evals, plain_eval = [], mcts._eval_and_expand
-    mcts._eval_and_expand = lambda *a: evals.append(_sync_time(lambda: plain_eval(*a))) or evals[-1][0]
-    try:
+    split, inside = {}, {}
+    before = eng.trees.root_stats[:, 0].clone()
+    with timed_phases(inside):
         _, split["search"] = _sync_time(lambda: eng.rollout(args.r))
-    finally:
-        mcts._eval_and_expand = plain_eval
-    evals = [dt for _, dt in evals]
+    rollouts = int((eng.trees.root_stats[:, 0] - before)[0])
     visits, split["vote"] = _sync_time(eng._root_child_visits)
     _, split["re-root"] = _sync_time(lambda: eng._apply_move(max(sorted(visits), key=visits.get)))
     total = sum(split.values())
     parts = ", ".join(f"{k} {1e3 * v:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
+    phases = "; ".join(f"{len(v)} {k} {1e3 * sum(v):.2f} ms" for k, v in inside.items())
     print(
-        f"served move ({' '.join(flags)}): synchronised total {1e3 * total:.2f} ms: {parts}; of the search, "
-        f"{len(evals)} leaf evaluations (features, nets, expansion) {1e3 * sum(evals):.2f} ms"
+        f"served move ({' '.join(flags)}): synchronised total {1e3 * total:.2f} ms: {parts}; {rollouts} rollouts "
+        f"per tree, {rollouts / split['search']:.1f} rollouts/s per tree; of the search: {phases}"
     )
     print_profile(f"served move ({' '.join(flags)})", lambda: eng.send("genmove black"))
 
@@ -185,7 +221,13 @@ def main():
 
     print_profile("self-play move", selfplay_move)
     served = {"policy": nets.load_policy(POLICY_WEIGHTS, device=dev), "value": params["value"]}
-    for flags in (["-r", "400"], ["-r", "400", "--fast", "--forest", "8"]):
+    for flags in (
+        ["-r", "400"],
+        ["-r", "400", "--fast", "--forest", "8"],
+        ["-r", "400", "--leaf-batch", "8"],
+        ["-r", "400", "--leaf-batch", "16", "--forest", "8"],
+        ["-r", "8", "--simulate"],
+    ):
         served_move(dev, served, flags)
 
 

@@ -6,13 +6,19 @@ from __future__ import annotations
 
 import torch
 
-from bokego_tpu_torch.models.nets import PolicyNet, ValueNet
+from bokego_tpu_torch.models.nets import PolicyNet, PolicyNetV2, ValueNet
 
 
 @torch.inference_mode()
 def policy_probs(net: PolicyNet, fts: torch.Tensor) -> torch.Tensor:
     """(B, 9, 9, 27) -> (B, 81) softmax over the points."""
     return torch.softmax(net(fts), dim=-1)
+
+
+@torch.inference_mode()
+def policy_logits_v2(net: PolicyNetV2, fts: torch.Tensor) -> torch.Tensor:
+    """(B, 9, 9, 27) -> (B, 81) logits of the legacy v0.2 policy."""
+    return net(fts)
 
 
 @torch.inference_mode()

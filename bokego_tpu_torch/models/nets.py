@@ -81,6 +81,25 @@ class ValueNet(nn.Module):
         return torch.tanh(self.lin2(x))
 
 
+class PolicyNetV2(nn.Module):
+    """The legacy v0.2 policy, kept for loading old checkpoints: no
+    BatchNorm, a 5x5 conv 27 -> 64 and five 3x3 convs to 128 with ReLU
+    between (``conv.0 … conv.10``), the untied-bias 1x1 head at ``conv.12``."""
+
+    def __init__(self):
+        super().__init__()
+        layers: list[nn.Module] = []
+        in_ch = 27
+        for width, k in zip([64] + [128] * 5, [5] + [3] * 5):
+            layers += [nn.Conv2d(in_ch, width, k, padding=k // 2), nn.ReLU()]
+            in_ch = width
+        layers.append(UntiedBiasConv(in_ch, 1))
+        self.conv = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(_nchw(x)).reshape(x.shape[0], NN)
+
+
 def init_policy(channels: int = 128, seed: int = 0, device=None) -> PolicyNet:
     """A seeded random-init PolicyNet in eval mode on ``device``."""
     dev = resolve_device(device)

@@ -32,13 +32,21 @@ when that flag is true; the JAX package calls them on every rollout with an
 all-false mask when there is no work, which writes nothing, so the results
 are the same.
 
+Simulation mode (``no_sim=False``) plays every leaf out to the end of the
+game with the policy on every step (:func:`_simulate`) and backs the
+Tromp-Taylor reward up the Wq plane beside the value net's Wv; PUCT mixes
+the two by ``value_net_weight``.  The rollout kernel is a ``no_sim`` kernel,
+so with ``use_kernel=True`` and ``no_sim=False`` the descent and the backprop
+take the non-kernel path, as in the JAX package (only the expansion's row
+write still goes through ``write_rows``; the CLI's ``--simulate`` sets
+``use_kernel=False``).  The
+playouts draw from the ``torch.Generator`` passed as ``gen``; without
+simulations ``gen`` is not read.  Leaf-parallel search (``leaf_batch > 1``)
+is :mod:`bokego_tpu_torch.search.leafpar`.
+
 Serving helpers: Dirichlet root noise (a draw and a pure mixing function),
 :func:`advance_root` / :func:`expand_roots` for subtree reuse between moves,
 :func:`pv_walk` and :func:`root_winrate`.
-
-Not ported yet (they raise ``NotImplementedError``): simulation mode
-(``no_sim=False``) and leaf-parallel search (``leaf_batch > 1``); see
-ROADMAP.md, "Modules to port".
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from bokego_tpu_torch.env.state import GoState
 from bokego_tpu_torch.features import features_batch, features_from_tables
 from bokego_tpu_torch.models import inference
 from bokego_tpu_torch.ops import rollout
+from bokego_tpu_torch.search import playout as po
 from bokego_tpu_torch.search import tree as tr
 from bokego_tpu_torch.search.tree import Tree, empty_tree, expand_core, gather_states, take_rows
 
@@ -65,12 +74,15 @@ class Evaluator(NamedTuple):
     ``evaluate(params, states) -> (probs (B, 81), values (B,) | None)``;
     ``evaluate_fts(params, fts)`` does the same from precomputed features,
     letting eval steps share one group analysis between the features and
-    the successors (``rules.leaf_analysis``).
+    the successors (``rules.leaf_analysis``); ``policy_probs(params, states)
+    -> (B, 81)`` is the policy alone, which simulation mode's playouts need
+    (without it ``no_sim=False`` raises).
     """
 
     evaluate: Callable
     has_value: bool
     evaluate_fts: Callable | None = None
+    policy_probs: Callable | None = None
 
 
 def net_evaluator(has_value: bool = True) -> Evaluator:
@@ -85,7 +97,12 @@ def net_evaluator(has_value: bool = True) -> Evaluator:
     def evaluate(params, states):
         return evaluate_fts(params, features_batch(states))
 
-    return Evaluator(evaluate=evaluate, has_value=has_value, evaluate_fts=evaluate_fts)
+    def policy_probs(params, states):
+        return inference.policy_probs(params["policy"], features_batch(states))
+
+    return Evaluator(
+        evaluate=evaluate, has_value=has_value, evaluate_fts=evaluate_fts, policy_probs=policy_probs
+    )
 
 
 def _mix_weight(cfg: SearchConfig, has_value: bool) -> float:
@@ -151,7 +168,6 @@ def init_trees(
     """Build a batch of trees and expand and value their roots.  With
     ``cfg.noise_weight > 0`` the root priors are mixed with ``noise (B, 81)``,
     drawn from ``gen`` when it is not given."""
-    _check_ported(cfg)
     trees = empty_tree(root_states, cfg.max_nodes, cfg.max_turns)
     probs, vals = _with_values(*ev.evaluate(params, root_states))
     if cfg.noise_weight > 0:
@@ -265,11 +281,15 @@ def _descend_batch(trees: Tree, cfg: SearchConfig, w: float) -> _Descent:
     return _Descent(leaf=cur, rows=torch.stack(rows, 1), acts=torch.stack(acts, 1), leaf_n=leaf_n, depth=depth)
 
 
-def _backprop_batch(trees: Tree, desc: _Descent, use_value: bool) -> Tree:
-    """Add the visit and the leaf's cached value up every recorded path, the
-    sign flipping per ply, and update the roots' own stats (in place): one
-    ``index_put_(accumulate=True)`` per stat plane.  The edges of one path
-    are distinct, so each takes exactly one add; unused levels add 0."""
+def _backprop_batch(
+    trees: Tree, desc: _Descent, sim_reward: torch.Tensor | None, use_value: bool
+) -> Tree:
+    """Add the visit, the playout's reward (``sim_reward (B,)`` from the
+    leaf mover's side; ``None`` without simulations) and the leaf's cached
+    value up every recorded path, the sign flipping per ply, and update the
+    roots' own stats (in place): one ``index_put_(accumulate=True)`` per
+    stat plane.  The edges of one path are distinct, so each takes exactly
+    one add; unused levels add 0."""
     batch, levels = desc.rows.shape
     dev = desc.rows.device
     # NaN = not evaluated yet (possible only at eval_every > 1): backs up 0
@@ -280,19 +300,20 @@ def _backprop_batch(trees: Tree, desc: _Descent, use_value: bool) -> Tree:
     sign = torch.where((desc.depth[:, None] - lvl - 1) % 2 == 0, 1.0, -1.0)
     b_idx = torch.arange(batch, device=dev)[:, None].expand(batch, levels)
     plane = torch.zeros_like(desc.rows)
+    root_sign = torch.where(desc.depth % 2 == 0, 1.0, -1.0)
     trees.pstats.index_put_(
         (b_idx, desc.rows, plane + tr.C_N, desc.acts), used.float(), accumulate=True
     )
-    if use_value:
-        trees.pstats.index_put_(
-            (b_idx, desc.rows, plane + tr.C_WV, desc.acts),
-            torch.where(used, sign * leaf_val[:, None], 0.0),
-            accumulate=True,
-        )
-    root_sign = torch.where(desc.depth % 2 == 0, 1.0, -1.0)
     trees.root_stats[:, 0] += 1.0
-    if use_value:
-        trees.root_stats[:, 2] += root_sign * leaf_val
+    # root_stats' columns (N, Wq, Wv) are numbered like the stat planes
+    for use, amount, ch in ((sim_reward is not None, sim_reward, tr.C_WQ), (use_value, leaf_val, tr.C_WV)):
+        if use:
+            trees.pstats.index_put_(
+                (b_idx, desc.rows, plane + ch, desc.acts),
+                torch.where(used, sign * amount[:, None], 0.0),
+                accumulate=True,
+            )
+            trees.root_stats[:, ch] += root_sign * amount
     return trees
 
 
@@ -305,13 +326,38 @@ def _eval_and_expand(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, leav
         pre = (la.children, la.legal)
     else:
         probs, vals = _with_values(*ev.evaluate(params, leaf_states))
-        pre = rules.child_states(leaf_states)
+        pre = rules.child_states(leaf_states, with_hash=False)
     trees = _expand_batch(trees, leaves, probs, need, cfg, precomputed=pre)
     return tr.set_leaf_value(trees, leaves, vals)
 
 
-def _search_step_plain(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, step_idx: int) -> Tree:
-    """One rollout on every tree without the kernels."""
+def _simulate(
+    gen: torch.Generator, leaf_states: GoState, ev: Evaluator, params, cfg: SearchConfig
+) -> torch.Tensor:
+    """Policy playout of every leaf to the end of the game (no own-eye
+    fills); (B,) Tromp-Taylor reward from the side of the player to move at
+    the leaf."""
+    if ev.policy_probs is None:
+        raise ValueError("simulation mode (no_sim=False) needs an Evaluator with policy_probs")
+    if gen is None:
+        raise ValueError("simulation mode (no_sim=False) needs a torch.Generator (gen=)")
+
+    def probs_fn(states):
+        return ev.policy_probs(params, states)
+
+    final = po.playout_final(
+        gen, probs_fn, probs_fn, leaf_states, max_turns=cfg.max_turns, avoid_eyes=True
+    )
+    r_black = po.rewards(final)
+    return torch.where(leaf_states.turn % 2 == 0, r_black, -r_black)
+
+
+def _search_step_plain(
+    trees: Tree, ev: Evaluator, params, cfg: SearchConfig, step_idx: int, gen: torch.Generator | None
+) -> Tree:
+    """One rollout on every tree without the kernels.  In simulation mode
+    every leaf is played out on every step, whether or not the step
+    evaluates."""
     desc = _descend_batch(trees, cfg, _mix_weight(cfg, ev.has_value))
     leaves = desc.leaf
     leaf_visits = torch.where(desc.depth > 0, desc.leaf_n, trees.root_stats[:, 0])
@@ -323,38 +369,35 @@ def _search_step_plain(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, st
     work = _is_eval_step(cfg, step_idx) and bool(
         need.any() | take_rows(trees.value, leaves).isnan().any()
     )
+    sim_r = None if cfg.no_sim else _simulate(gen, gather_states(trees.nodes, leaves), ev, params, cfg)
     if cfg.eval_every > 1:
         # delayed valuation, as on the kernel path: backprop with the value
         # cached so far, then evaluate and expand
-        trees = _backprop_batch(trees, desc, ev.has_value)
+        trees = _backprop_batch(trees, desc, sim_r, ev.has_value)
         return _eval_and_expand(trees, ev, params, cfg, leaves, need) if work else trees
     # the exact reference ordering: evaluate the leaf, then backprop it
     if work:
         trees = _eval_and_expand(trees, ev, params, cfg, leaves, need)
-    return _backprop_batch(trees, desc, ev.has_value)
-
-
-def _check_ported(cfg: SearchConfig) -> None:
-    if not cfg.no_sim:
-        raise NotImplementedError(
-            "simulation mode (no_sim=False) is not ported yet: ROADMAP.md, modules to port, item 8"
-        )
-    if cfg.leaf_batch > 1:
-        raise NotImplementedError(
-            "leaf-parallel search (leaf_batch > 1) is not ported yet: ROADMAP.md, modules to "
-            "port, item 8 (queued with simulation mode)"
-        )
+    return _backprop_batch(trees, desc, sim_r, ev.has_value)
 
 
 def _is_eval_step(cfg: SearchConfig, step_idx: int) -> bool:
     return cfg.eval_every <= 1 or step_idx % cfg.eval_every == 0
 
 
-def search_step(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, step_idx: int = 0) -> Tree:
-    """One synchronised rollout across every tree (in place)."""
-    _check_ported(cfg)
-    if not cfg.use_kernel:
-        return _search_step_plain(trees, ev, params, cfg, step_idx)
+def _kernel_path(cfg: SearchConfig) -> bool:
+    """The rollout kernel serves ``no_sim`` searches only."""
+    return cfg.use_kernel and cfg.no_sim
+
+
+def search_step(
+    trees: Tree, ev: Evaluator, params, cfg: SearchConfig, step_idx: int = 0,
+    gen: torch.Generator | None = None,
+) -> Tree:
+    """One synchronised rollout across every tree (in place).  ``gen`` draws
+    the playouts of simulation mode and is not read otherwise."""
+    if not _kernel_path(cfg):
+        return _search_step_plain(trees, ev, params, cfg, step_idx, gen)
     return _rollout_group(trees, ev, params, cfg, 1, _is_eval_step(cfg, step_idx))
 
 
@@ -372,14 +415,16 @@ def rollout_groups(n_rollouts: int, eval_every: int) -> list[tuple[int, bool]]:
     return groups
 
 
-def run_search(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, n_rollouts: int) -> Tree:
+def run_search(
+    trees: Tree, ev: Evaluator, params, cfg: SearchConfig, n_rollouts: int,
+    gen: torch.Generator | None = None,
+) -> Tree:
     """``n_rollouts`` synchronised rollouts (steps ``0..n_rollouts-1``); on
     the kernel path one kernel launch per run of steps up to and including
-    the next eval step."""
-    _check_ported(cfg)
-    if not cfg.use_kernel:
+    the next eval step.  ``gen`` as in :func:`search_step`."""
+    if not _kernel_path(cfg):
         for i in range(n_rollouts):
-            trees = _search_step_plain(trees, ev, params, cfg, i)
+            trees = _search_step_plain(trees, ev, params, cfg, i, gen)
         return trees
     for length, evaluate in rollout_groups(n_rollouts, cfg.eval_every):
         trees = _rollout_group(trees, ev, params, cfg, length, evaluate)
@@ -396,10 +441,10 @@ def search(
 ) -> tuple[torch.Tensor, Tree]:
     """Fresh-tree search: init, rollouts, choose.  Returns (actions, trees);
     actions use the device encoding (81 = pass).  ``gen`` draws the root
-    noise when ``cfg.noise_weight > 0``."""
+    noise when ``cfg.noise_weight > 0`` and the playouts in simulation mode."""
     n = cfg.n_rollouts if n_rollouts is None else n_rollouts
     trees = init_trees(root_states, ev, params, cfg, gen=gen)
-    trees = run_search(trees, ev, params, cfg, n)
+    trees = run_search(trees, ev, params, cfg, n, gen=gen)
     return choose_action(trees), trees
 
 

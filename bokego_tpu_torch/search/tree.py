@@ -111,7 +111,7 @@ def expand_core(
     batch = node.shape[0]
     dev = node.device
     if precomputed is None:
-        csts, legal = rules.child_states(gather_states(tree.nodes, node))
+        csts, legal = rules.child_states(gather_states(tree.nodes, node), with_hash=False)
     else:
         csts, legal = precomputed
     mask = legal[:, :NN]

@@ -35,7 +35,19 @@ Phases (any failure exits non-zero; nothing is caught):
     vertex legal on a ``NativeBoard`` referee, no rebuild where the played
     child was in the tree, ``analyze``, ``final_score``, SGF out and in;
 10. the engine as a process: ``python -m bokego_tpu_torch.cli`` through
-    ``GTPProcess`` for a few moves at ``-r 64``, then one move at ``-t 1``.
+    ``GTPProcess`` for a few moves at ``-r 64``, then one move at ``-t 1``;
+11. leaf-parallel search without simulations, GPU against CPU, deterministic
+    evaluators (plain and fused evaluation), K = 1, 4, 8 at B=8: equal trees
+    and chosen actions, and K = 1 equal to ``run_search``;
+12. simulation mode with the one-hot playout policy (one point of mass, so
+    the draws of the two devices' generators cannot matter), GPU against
+    CPU: ``run_search`` at eval_every 1 and 2 and ``run_search_k`` at K = 4;
+13. one served session per search-mode flag with the shipped nets: ``--leaf-batch
+    8`` and ``--leaf-batch 16 --forest 8`` at ``-r 400``, ``--simulate`` at
+    ``-r SIM_ROLLOUTS``: no kernel launch, every root's visits grown by
+    exactly the rollouts of the chunks run, every vertex legal on the
+    referee; s/genmove, rollouts/s, leaf evaluations with their batch and
+    plies per playout are printed.
 
 The last two lines of standard output are the kernels' JSON record (K1 and
 K2 once at the self-play path's shapes and once at the serving path's) and
@@ -62,6 +74,9 @@ FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 MOVES = 20  # self-play moves of the self-play path
 SERVE_ROLLOUTS = 400  # rollouts per generated move of the served sessions
 SERVE_FOREST = 8  # trees of the --fast session
+SIM_ROLLOUTS = 16  # rollouts per generated move of the --simulate session: every
+# rollout plays its leaf to the end of the game (up to 82 plies, each a policy
+# forward and a host read), about 1 s a rollout on an H100 (PERF.md)
 FUSED = 8  # rollouts per launch in the K1 check: the main path's eval_every
 
 
@@ -279,27 +294,41 @@ def check_serving_kernels(dev, params, roots) -> dict:
     return records
 
 
+def _same_trees(a, b, what: str) -> None:
+    """Every tree array and the chosen actions of ``a`` (on the GPU) equal
+    those of ``b`` (on the CPU)."""
+    from bokego_tpu_torch.search import mcts
+
+    for f in ("pstats", "root_stats", "n_nodes", "parent", "action", "value", "expanded", "terminal", "root"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        check(torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0)), f"GPU vs CPU: {f} differs ({what})")
+    check(torch.equal(mcts.choose_action(a).cpu(), mcts.choose_action(b)), f"chosen actions differ ({what})")
+
+
+def _random_roots(batch: int, n_moves: int, seed: int):
+    """Positions of seeded random games, on the CPU."""
+    from bokego_tpu_torch.env import rules, state as st
+
+    roots = st.new_game_batch(batch, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(n_moves):
+        legal = rules.legal_mask(roots)[:, :81].float()
+        roots = rules.step(roots, torch.multinomial(legal, 1, generator=gen)[:, 0])
+    return roots
+
+
 def check_plain_search(dev) -> None:
     """Phase 8: the non-kernel search on the GPU against the CPU."""
     from bokego_tpu_torch.config import SearchConfig
-    from bokego_tpu_torch.env import rules, state as st
     from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts, tree as tr
     from tests.torch_fake_eval import fake_evaluator
 
     fev = fake_evaluator()
-    roots = st.new_game_batch(4, device="cpu")
-    gen = torch.Generator().manual_seed(3)
-    for _ in range(12):
-        legal = rules.legal_mask(roots)[:, :81].float()
-        roots = rules.step(roots, torch.multinomial(legal, 1, generator=gen)[:, 0])
-    fields = ("pstats", "root_stats", "n_nodes", "parent", "action", "value", "expanded", "terminal", "root")
+    roots = _random_roots(4, 12, seed=3)
 
     def same(a, b, what):
-        for f in fields:
-            x, y = getattr(a, f).cpu(), getattr(b, f)
-            check(torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0)), f"non-kernel search GPU vs CPU: {f} differs ({what})")
-        check(torch.equal(mcts.choose_action(a).cpu(), mcts.choose_action(b)), f"chosen actions differ ({what})")
+        _same_trees(a, b, f"non-kernel search, {what}")
 
     def grow(cfg, where):
         states = roots.map(lambda x: x.to(where))
@@ -491,6 +520,181 @@ def serve_session(dev, params, fast: bool) -> dict:
     return counts
 
 
+def check_leaf_parallel_search(dev) -> None:
+    """Phases 11 and 12: leaf-parallel search and simulation mode on the GPU
+    against the CPU (tolerance 0)."""
+    from bokego_tpu_torch.config import SearchConfig
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.search import leafpar, mcts
+    from tests.torch_fake_eval import fake_evaluator, onehot_evaluator, stones_evaluator
+
+    rollout.reset_launches()
+    roots = _random_roots(8, 12, seed=4)
+    cfg = SearchConfig(expand_thresh=2, max_nodes=2048)
+    n = 128
+    for ev_name, ev in (("plain evaluation", fake_evaluator()), ("fused evaluation", stones_evaluator())):
+        for k in (1, 4, 8):
+            grown = []
+            for where in (dev, "cpu"):
+                t = mcts.init_trees(roots.map(lambda x: x.to(where)), ev, None, cfg)
+                grown.append(leafpar.run_search_k(t, ev, None, cfg, n, k))
+            gpu, cpu = grown
+            _same_trees(gpu, cpu, f"leaf-parallel K={k}, {ev_name}")
+            check(gpu.root_stats[:, 0].tolist() == [float(n)] * 8, f"leaf-parallel K={k}: root visits {gpu.root_stats[:, 0].tolist()}")
+            check(int(gpu.n_nodes.min()) > 82, f"leaf-parallel K={k} did not expand below the root")
+            check(not bool(gpu.pstats[:, :, 1].any()), f"leaf-parallel K={k} left a virtual loss in Wq")
+            if k == 1:
+                seq = mcts.init_trees(roots.map(lambda x: x.to(dev)), ev, None, cfg)
+                seq = mcts.run_search(seq, ev, None, cfg, n)
+                check(
+                    torch.equal(seq.pstats, gpu.pstats) and torch.equal(seq.root_stats, gpu.root_stats)
+                    and torch.equal(seq.value.nan_to_num(7.0), gpu.value.nan_to_num(7.0)),
+                    f"leaf-parallel K=1 differs from run_search ({ev_name})",
+                )
+    log("leaf-parallel search: GPU equals CPU at K = 1, 4, 8 (B=8, 128 rollouts, plain and fused evaluation); K=1 equals run_search")
+
+    ev = onehot_evaluator()
+    sim_roots = _random_roots(4, 20, seed=5)
+    # one komi per board, so that the playouts do not all end the same way
+    sim_roots.komi = torch.tensor([-20.0, 0.5, 5.5, 30.0])
+    for what, kw, k in (
+        ("eval_every=1", dict(), 0), ("eval_every=2", dict(eval_every=2), 0), ("leaf-parallel K=4", dict(), 4),
+    ):
+        cfg = SearchConfig(expand_thresh=2, max_nodes=1024, no_sim=False, max_turns=60, **kw)
+        grown = []
+        for where in (dev, "cpu"):
+            gen = torch.Generator(device=where).manual_seed(6)
+            t = mcts.init_trees(sim_roots.map(lambda x: x.to(where)), ev, None, cfg)
+            if k:
+                grown.append(leafpar.run_search_k(t, ev, None, cfg, 24, k, gen=gen))
+            else:
+                grown.append(mcts.run_search(t, ev, None, cfg, 24, gen=gen))
+        gpu, cpu = grown
+        _same_trees(gpu, cpu, f"simulation mode, {what}")
+        wq = gpu.root_stats[:, 1].tolist()
+        check(all(abs(x) <= 24 for x in wq) and len(set(wq)) > 1, f"simulation mode, {what}: root Wq {wq}")
+        check(bool(gpu.pstats[:, :, 1].any()), f"simulation mode, {what}: no reward reached an edge")
+    check(rollout.launches == {"descend_backprop": 0, "write_rows": 0}, "leaf-parallel search or simulation mode launched a kernel")
+    log("simulation mode (one-hot playout policy): GPU equals CPU at eval_every 1 and 2 and leaf-parallel at K=4 (B=4, 24 rollouts)")
+
+
+def serve_search_mode(dev, params, flags: list[str], moves: int) -> None:
+    """Phase 13: one served session with ``flags`` (leaf-parallel search or
+    simulation mode) in process."""
+    from bokego_tpu_torch import cli, native
+    from bokego_tpu_torch.config import EngineConfig
+    from bokego_tpu_torch.coords import squash
+    from bokego_tpu_torch.gtp import engine as gtp_engine
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.search import mcts
+
+    name = " ".join(flags)
+    args = cli.build_parser().parse_args(flags + ["--no-ponder"])
+    scfg = cli.search_config(args, dev)
+    k = scfg.leaf_batch
+    check(not scfg.use_kernel and scfg.eval_every == 1, f"{name}: unexpected search config {scfg}")
+    check(scfg.no_sim != args.simulate and k == (args.leaf_batch or 1), f"{name}: unexpected search config {scfg}")
+    ecfg = EngineConfig(time_lim=None, n_rollouts=args.r, pondering=False, forest_size=args.forest)
+    # count the net forwards: leaf evaluations with their batch, playout plies
+    base = mcts.net_evaluator()
+    eval_batches, plies = [], []
+
+    def evaluate_fts(net_params, fts):
+        eval_batches.append(fts.shape[0])
+        return base.evaluate_fts(net_params, fts)
+
+    def policy_probs(net_params, states):
+        plies.append(states.board.shape[0])
+        return base.policy_probs(net_params, states)
+
+    eng = gtp_engine.GTPEngine(
+        base._replace(evaluate_fts=evaluate_fts, policy_probs=policy_probs), params, scfg, ecfg, device=dev
+    )
+    eng.running = True
+    t0 = time.monotonic()
+    eng.warm_up()
+    torch.cuda.synchronize()
+    log(f"engine ({name}): warm-up {time.monotonic() - t0:.2f} s, chunk of 8 {1e3 * eng._chunk_s:.2f} ms")
+    rollout.reset_launches()
+
+    def ok(cmd, want=None):
+        out = eng.send(cmd)
+        check(out.startswith("= ") and out.endswith("\n\n"), f"{name}: {cmd!r} -> {out!r}")
+        check(want is None or out[2:].strip() == want, f"{name}: {cmd!r} -> {out!r}, expected {want!r}")
+        return out[2:].strip()
+
+    chunks, searched = [], []
+    run_chunk, rollout_n = eng._run_chunk, eng.rollout
+
+    def recorded_chunk(n):
+        chunks[-1].append(n)
+        run_chunk(n)
+
+    def recorded_rollout(n):
+        """genmove's own search: the chunks it ran, each root's visit growth,
+        the forwards it made, and whether the pool stopped it."""
+        chunks.append([])
+        before = eng.trees.root_stats[:, 0].clone()
+        n_evals, n_plies = len(eval_batches), len(plies)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = rollout_n(n)
+        torch.cuda.synchronize()
+        searched.append(dict(
+            s=time.monotonic() - t0, grown=(eng.trees.root_stats[:, 0] - before).tolist(), full=eng._pool_full(),
+            evals=eval_batches[n_evals:], plies=len(plies) - n_plies,
+        ))
+        return out
+
+    eng._run_chunk, eng.rollout = recorded_chunk, recorded_rollout
+    for cmd in ("boardsize 9", "komi 5.5", "clear_board", "play black E5"):
+        ok(cmd, "")
+    gen_s = []
+    for i in range(moves):
+        referee = native.replay(eng._move_history, 5.5)
+        rebuilds = eng.rebuilds
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        vertex = ok(f"genmove {'white' if i % 2 == 0 else 'black'}")
+        torch.cuda.synchronize()
+        gen_s.append(time.monotonic() - t0)
+        check(re.fullmatch(r"[A-HJ][1-9]|PASS", vertex) is not None, f"{name}: genmove gave {vertex!r}")
+        referee.play(squash(vertex))  # raises on an illegal move
+        check(eng.state.board[0].cpu().numpy().tolist() == referee.board.tolist(), f"{name}: board differs from the referee's")
+        check(eng.rebuilds == rebuilds, f"{name}: a genmove rebuilt the forest though the child was in the tree")
+    check(re.fullmatch(r"[BW]\+\d+\.\d|0", ok("final_score")) is not None, f"{name}: final_score")
+    check("X" in ok("showboard"), f"{name}: showboard")
+    # Count mode's chunks (256 while 256 are left, then 8), each run as
+    # ceil(chunk / K) steps of K rollouts: the roots grow by exactly that.
+    full_chunks = [gtp_engine.BIG_CHUNK] * (args.r // gtp_engine.BIG_CHUNK)
+    full_chunks += [gtp_engine.ROLLOUT_CHUNK] * -(-(args.r % gtp_engine.BIG_CHUNK) // gtp_engine.ROLLOUT_CHUNK)
+    asked = sum(-(-c // k) * k for c in full_chunks)
+    for ran, rec in zip(chunks, searched):
+        check(ran == full_chunks or (rec["full"] and ran == full_chunks[: len(ran)]), f"{name}: chunks {ran}, expected {full_chunks}")
+        want = float(sum(-(-c // k) * k for c in ran))
+        check(rec["grown"] == [want] * eng.forest, f"{name}: root visits grew by {rec['grown']}, expected {want}")
+        check(all(b == k * eng.forest for b in rec["evals"]), f"{name}: leaf evaluation batches {set(rec['evals'])}")
+    check(chunks[0] == full_chunks and searched[0]["grown"][0] == asked, f"{name}: the first genmove ran {chunks[0]}")
+    if args.simulate:
+        playouts = sum(sum(-(-c // k) for c in ran) for ran in chunks)
+        total_plies = sum(rec["plies"] for rec in searched)
+        check(total_plies >= playouts, f"{name}: {total_plies} playout plies in {playouts} playouts")
+        sim_note = f"; {playouts} playouts of {k * eng.forest} leaves, {total_plies / playouts:.1f} plies per playout"
+    else:
+        check(not plies, f"{name}: {len(plies)} playout plies without --simulate")
+        sim_note = ""
+    rate = [rec["grown"][0] / rec["s"] for rec in searched]
+    log(
+        f"engine ({name}): s/genmove {[round(x, 3) for x in gen_s]}; rollouts per tree and genmove "
+        f"{[int(rec['grown'][0]) for rec in searched]} (asked {args.r}, as chunks of K={k}: {asked}); rollouts/s per tree "
+        f"{[round(x, 1) for x in rate]} x {eng.forest} trees; leaf evaluations per genmove "
+        f"{[len(rec['evals']) for rec in searched]} at batch {k * eng.forest}{sim_note}"
+    )
+    ok("quit", "")
+    check(eng.send("protocol_version") is None, f"{name}: the engine answered after quit")
+    check(rollout.launches == {"descend_backprop": 0, "write_rows": 0}, f"{name}: kernel launches {rollout.launches}")
+
+
 def serve_process() -> None:
     """Phase 10: the engine as a subprocess, one process at a time."""
     from bokego_tpu_torch import native
@@ -523,7 +727,7 @@ def serve_process() -> None:
 
 
 def serving_phases(dev, roots):
-    """Phases 7-10; returns (records, launch counts) of K1/K2 on the --fast
+    """Phases 7-13; returns (records, launch counts) of K1/K2 on the --fast
     engine's path."""
     from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
     from bokego_tpu_torch.models import nets
@@ -534,6 +738,11 @@ def serving_phases(dev, roots):
     default_counts = serve_session(dev, params, fast=False)
     fast_counts = serve_session(dev, params, fast=True)
     log(f"served sessions: launches default {default_counts}, --fast {fast_counts}")
+    check_leaf_parallel_search(dev)
+    r = str(SERVE_ROLLOUTS)
+    serve_search_mode(dev, params, ["-r", r, "--leaf-batch", "8"], moves=4)
+    serve_search_mode(dev, params, ["-r", r, "--leaf-batch", "16", "--forest", str(SERVE_FOREST)], moves=4)
+    serve_search_mode(dev, params, ["-r", str(SIM_ROLLOUTS), "--simulate"], moves=2)
     del params
     torch.cuda.empty_cache()
     serve_process()

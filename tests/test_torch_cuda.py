@@ -1,6 +1,8 @@
 """GPU tests of the port: the CUDA kernels against their plain versions (at
-the self-play and at the serving shapes), GPU self-play and the non-kernel
-search against their CPU runs, and a short engine session on the card.
+the self-play and at the serving shapes), GPU self-play, the non-kernel
+search, leaf-parallel search and simulation mode (with the one-hot playout
+policy, whose draws cannot matter) against their CPU runs, a short engine
+session per configuration on the card, and the profiler hooks.
 Marked ``cuda``; they skip without a GPU.  This file imports no JAX, so it
 also runs where JAX is absent:
 
@@ -17,9 +19,10 @@ from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.gtp.engine import GTPEngine
 from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.parallel.selfplay import selfplay
-from bokego_tpu_torch.search import mcts, tree
+from bokego_tpu_torch.search import leafpar, mcts, tree
 from bokego_tpu_torch.search.tree import C_WQ
-from tests.torch_fake_eval import fake_evaluator
+from bokego_tpu_torch.utils import metrics
+from tests.torch_fake_eval import fake_evaluator, onehot_evaluator, stones_evaluator
 
 pytestmark = pytest.mark.cuda
 
@@ -192,14 +195,91 @@ def test_non_kernel_search_gpu_equals_cpu(dev, eval_every):
     assert rollout.launches == {"descend_backprop": 0, "write_rows": 0}
 
 
-@pytest.mark.parametrize("fast", [False, True], ids=["default", "fast_forest2"])
-def test_engine_session_on_the_card(dev, fast):
+TREE_FIELDS = ("pstats", "root_stats", "n_nodes", "parent", "action", "expanded", "terminal", "root")
+
+
+def _assert_gpu_equals_cpu(gpu, cpu):
+    for f in TREE_FIELDS:
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    assert torch.equal(gpu.value.cpu().nan_to_num(7.0), cpu.value.nan_to_num(7.0))
+
+
+def _midgame_roots(where, batch=8):
+    moves = torch.tensor([[40, 30, 20, 10, 50, 60, 41, 31][:batch], [42, 32, 22, 12, 52, 62, 43, 33][:batch]])
+    return rules.play_moves(st.new_game_batch(batch, device=where), moves.to(where))
+
+
+@pytest.mark.parametrize("K", [1, 4, 8])
+@pytest.mark.parametrize("ev_fn", [fake_evaluator, stones_evaluator], ids=["fake", "stones_fused"])
+def test_leaf_parallel_search_gpu_equals_cpu(dev, K, ev_fn):
+    """``run_search_k`` without simulations: the same trees on the GPU and
+    on the CPU (an edge shared by several paths takes their terms in the
+    order of k on both), and K=1 the same as ``run_search``."""
+    cfg = SearchConfig(expand_thresh=1, branch_num=8, max_nodes=1024)
+    ev = ev_fn()
+    rollout.reset_launches()
+    out = []
+    for where in (dev, "cpu"):
+        t = mcts.init_trees(_midgame_roots(where), ev, None, cfg)
+        out.append(leafpar.run_search_k(t, ev, None, cfg, 96, K))
+    _assert_gpu_equals_cpu(*out)
+    assert out[0].root_stats[:, 0].tolist() == [96.0] * 8 and int(out[0].expanded.sum(1).min()) >= 4
+    if K == 1:
+        seq = mcts.run_search(mcts.init_trees(_midgame_roots(dev), ev, None, cfg), ev, None, cfg, 96)
+        assert torch.equal(seq.pstats, out[0].pstats) and torch.equal(seq.root_stats, out[0].root_stats)
+    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0}
+
+
+@pytest.mark.parametrize("leaf_batch", [1, 4])
+def test_simulation_mode_gpu_equals_cpu(dev, leaf_batch):
+    """``no_sim=False`` with the one-hot playout policy (the CUDA and the CPU
+    generator draw different streams, which a single point of mass hides)."""
+    cfg = SearchConfig(expand_thresh=2, max_nodes=512, no_sim=False, max_turns=40)
+    ev = onehot_evaluator()
+    out = []
+    for where in (dev, "cpu"):
+        gen = torch.Generator(device=where).manual_seed(0)
+        t = mcts.init_trees(_midgame_roots(where, 4), ev, None, cfg)
+        if leaf_batch > 1:
+            out.append(leafpar.run_search_k(t, ev, None, cfg, 16, leaf_batch, gen=gen))
+        else:
+            out.append(mcts.run_search(t, ev, None, cfg, 16, gen=gen))
+    _assert_gpu_equals_cpu(*out)
+    assert bool((out[0].root_stats[:, 1] != 0).any())
+
+
+def test_profiler_hooks_on_the_card(dev, tmp_path):
+    """``device_trace`` records device events, ``annotate`` opens an NVTX
+    range, ``phase(block_on=...)`` waits for the card."""
+    import json
+    import os
+
+    m = metrics.Metrics()
+    x = torch.ones(1 << 20, device=dev)
+    with metrics.device_trace(str(tmp_path)) as prof:
+        with metrics.annotate("add"), m.phase("add", block_on={"x": x}):
+            x += 1
+    assert m.phases["add"].count == 1 and float(x[0]) == 2.0
+    with open(os.path.join(tmp_path, "trace.json")) as f:
+        assert json.load(f)["traceEvents"]
+    assert any(e.self_device_time_total > 0 for e in prof.key_averages())
+
+
+@pytest.mark.parametrize(
+    "name", ["default", "fast_forest2", "leaf_batch4_forest2", "simulate"]
+)
+def test_engine_session_on_the_card(dev, name):
     """Ten commands answered on the card; the kernel configuration launches
-    both kernels, the default configuration neither."""
-    cfg = SearchConfig(expand_thresh=2, max_nodes=512)
-    if fast:
-        cfg = SearchConfig(expand_thresh=2, max_nodes=512, use_kernel=True, eval_every=8)
-    ecfg = EngineConfig(time_lim=None, n_rollouts=32, pondering=False, forest_size=2 if fast else 1)
+    both kernels, the other configurations neither."""
+    fast = name == "fast_forest2"
+    cfg = {
+        "default": SearchConfig(expand_thresh=2, max_nodes=512),
+        "fast_forest2": SearchConfig(expand_thresh=2, max_nodes=512, use_kernel=True, eval_every=8),
+        "leaf_batch4_forest2": SearchConfig(expand_thresh=2, max_nodes=512, leaf_batch=4),
+        "simulate": SearchConfig(expand_thresh=2, max_nodes=512, no_sim=False, max_turns=40),
+    }[name]
+    rollouts = 8 if name == "simulate" else 32
+    ecfg = EngineConfig(time_lim=None, n_rollouts=rollouts, pondering=False, forest_size=2 if "forest2" in name else 1)
     eng = GTPEngine(fake_evaluator(), None, cfg, ecfg, device=dev)
     eng.running = True
     rollout.reset_launches()

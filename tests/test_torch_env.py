@@ -39,6 +39,7 @@ _jscore = jax.jit(jrules.score_batch)
 _jgroups = jax.jit(jrules.group_info_batch)
 _jleaf = jax.jit(jrules.leaf_analysis_batch)
 _jchild = jax.jit(jax.vmap(lambda s: jrules.child_states(s, with_hash=False)))
+_jchild_hash = jax.jit(jax.vmap(jrules.child_states))
 _jfts = jax.jit(jfeatures.features_batch)
 _jfts_tables = jax.jit(
     lambda s: jax.vmap(jfeatures.features_from_tables)(s, jrules.leaf_analysis_batch(s).mt)
@@ -109,9 +110,35 @@ def test_leaf_analysis_and_child_states_match_jax(seed, n_moves):
     np.testing.assert_array_equal(np.asarray(jl.legal), tl.legal.numpy())
     assert_states_equal(jl.children, tl.children)
     jc, jlegal = _jchild(js)
-    tc, tlegal = trules.child_states(ts)
+    tc, tlegal = trules.child_states(ts, with_hash=False)
     np.testing.assert_array_equal(np.asarray(jlegal), tlegal.numpy())
     assert_states_equal(jc, tc)
+
+
+@pytest.mark.parametrize("seed,n_moves", [(3, 20), (4, 55)])
+def test_child_states_with_hash_match_jax_and_step(seed, n_moves):
+    """``child_states`` with hashes (the default, as in the JAX package):
+    every field of every legal successor equals the JAX package's and what
+    ``step`` gives for that action; the rest is as without hashes."""
+    js = random_positions(seed, 8, n_moves, pass_prob=0.05)
+    ts = to_port(js)
+    jc, jlegal = _jchild_hash(js)
+    tc, tlegal = trules.child_states(ts)
+    legal = np.asarray(jlegal)
+    np.testing.assert_array_equal(legal, tlegal.numpy())
+    assert legal[:, :81].sum() > 100
+    np.testing.assert_array_equal(
+        tc.hash.numpy().astype(np.uint32)[legal], np.asarray(jc.hash)[legal]
+    )
+    plain, _ = trules.child_states(ts, with_hash=False)
+    for f in ("board", "ko", "turn", "last_move", "komi", "invalid"):
+        assert torch.equal(getattr(tc, f), getattr(plain, f)), f
+    assert not bool(plain.hash.any())
+    for a in range(82):
+        stepped = trules.step(ts, torch.full((8,), a))
+        ok = tlegal[:, a]
+        for f in ("board", "ko", "turn", "last_move", "hash"):
+            assert torch.equal(getattr(stepped, f)[ok], getattr(tc, f)[:, a][ok]), (f, a)
 
 
 @pytest.mark.parametrize("seed,n_moves", [(5, 0), (6, 25), (7, 60)])
@@ -131,7 +158,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import bokego_tpu_torch, bokego_tpu_torch.parallel.selfplay, "
-        "bokego_tpu_torch.models.convert, bokego_tpu_torch.ops.build\n"
+        "bokego_tpu_torch.models.convert, bokego_tpu_torch.ops.build, "
+        "bokego_tpu_torch.cli, bokego_tpu_torch.gtp.engine, bokego_tpu_torch.gtp.process, "
+        "bokego_tpu_torch.search.leafpar, bokego_tpu_torch.env.scoring, bokego_tpu_torch.measure, "
+        "bokego_tpu_torch.gnugo, bokego_tpu_torch.utils.metrics, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'bokego_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -1,8 +1,10 @@
 """The port's GTP engine: protocol conformance (the cases of
-``tests/test_gtp.py`` that are about protocol and engine behaviour), one
-scripted session answered letter for letter like the JAX engine, the
-deadline logic on a fake clock, and the host-side copies (``coords``,
-``sgf``, ``EngineConfig``) held equal to the originals.
+``tests/test_gtp.py`` that are about protocol and engine behaviour),
+scripted sessions answered letter for letter like the JAX engine (default,
+kernel, leaf-parallel and simulation-mode configurations), the CLI's flags
+against the JAX CLI's ``SearchConfig``, the deadline logic on a fake
+clock, and the host-side copies (``coords``, ``sgf``, ``EngineConfig``)
+held equal to the originals.
 
 Everything runs on the CPU with the deterministic evaluator; comparisons
 with the JAX engine are exact (tolerance 0: equal response strings)."""
@@ -26,7 +28,8 @@ from bokego_tpu_torch.gtp import engine as tengine
 from bokego_tpu_torch.gtp.engine import COMMANDS, GTPEngine
 from bokego_tpu_torch.search import tree as tr
 from tests.test_mcts import fake_evaluator as jax_fake_evaluator
-from tests.torch_fake_eval import fake_evaluator
+from tests.test_torch_playout import jax_onehot_evaluator
+from tests.torch_fake_eval import fake_evaluator, onehot_evaluator
 from tests.torch_port_util import to_port  # noqa: F401  (sets torch threads)
 
 
@@ -373,6 +376,58 @@ def test_session_matches_jax_engine(kernel, forest, tmp_path):
     assert teng.rebuilds < len(SESSION)  # generated moves re-rooted instead
 
 
+SHORT_SESSION = [
+    "clear_board", "play black E5", "genmove white", "play black C3", "genmove white",
+    "genmove black", "undo", "genmove black", "move_history", "showboard", "final_score", "quit",
+]
+
+
+@pytest.mark.parametrize(
+    "cfg,rollouts,forest,session",
+    [
+        (dict(leaf_batch=4), 16, 1, SESSION),
+        (dict(leaf_batch=3), 16, 2, SHORT_SESSION),
+        (dict(no_sim=False, max_turns=30), 8, 1, SHORT_SESSION),
+        (dict(no_sim=False, max_turns=30, leaf_batch=4), 8, 1, SHORT_SESSION),
+    ],
+    ids=["leaf_batch4", "leaf_batch3_forest2", "simulate", "simulate_leaf_batch4"],
+)
+def test_leaf_parallel_and_simulation_sessions_match_jax_engine(cfg, rollouts, forest, session, tmp_path):
+    """Leaf-parallel search and simulation mode through the engine, every
+    response equal to the JAX engine's.  Without simulations no random
+    number is drawn; with them the one-hot playout policy makes the draws
+    immaterial (the two engines' generators differ).  ``leaf_batch=3`` does
+    not divide the chunk of 8: both engines run 3 steps (9 rollouts) a
+    chunk."""
+    cfg = dict(dict(expand_thresh=2, no_sim=True, max_nodes=512), **cfg)
+    sim = not cfg["no_sim"]
+    ecfg = dict(time_lim=None, n_rollouts=rollouts, pondering=False, forest_size=forest)
+    jev, tev = (jax_onehot_evaluator(), onehot_evaluator()) if sim else (jax_fake_evaluator(), fake_evaluator())
+    jeng = JEngine(jev, None, JSearchConfig(**cfg), JEngineConfig(**ecfg))
+    teng = GTPEngine(tev, None, SearchConfig(**cfg), EngineConfig(**ecfg), device="cpu")
+    jeng.running = teng.running = True
+    grown, rollout = [], teng.rollout
+
+    def counted_rollout(n):  # genmove's own search: the roots' visit growth
+        before = teng.trees.root_stats[:, 0].clone()
+        out = rollout(n)
+        grown.append((teng.trees.root_stats[:, 0] - before).tolist())
+        return out
+
+    teng.rollout = counted_rollout
+    for cmd in session:
+        jout = jeng.send(cmd.format(sgf=os.path.join(tmp_path, "j.sgf")))
+        tout = teng.send(cmd.format(sgf=os.path.join(tmp_path, "t.sgf")))
+        assert tout == jout, cmd
+    assert teng._move_history == jeng._move_history
+    # every chunk of 8 runs ceil(8 / K) steps of K rollouts
+    k = cfg.get("leaf_batch", 1)
+    per_chunk = -(-tengine.ROLLOUT_CHUNK // k) * k
+    want = [float(per_chunk * (rollouts // tengine.ROLLOUT_CHUNK))] * forest
+    assert len(grown) == sum(c.startswith(("genmove", "reg_genmove")) for c in session)
+    assert all(g == want for g in grown), (grown, want)
+
+
 # ---------------------------------------------------------------------------
 # The deadline logic of timed_rollout, on a fake clock.
 
@@ -443,29 +498,86 @@ def test_warm_up_times_a_chunk_and_leaves_the_forest_alone():
     assert eng._chunk_s == pytest.approx(0.125) and clock.chunks == 2
 
 
-def test_unported_configurations_raise():
-    """Simulation mode and leaf-parallel search are not ported yet: the
-    engine and the CLI raise instead of searching some other way."""
+def _jax_cli_search_config(monkeypatch, flags):
+    """The ``SearchConfig`` that ``bokego_tpu.cli.main`` hands its engine for
+    ``flags`` (the engine and the weights are replaced by stand-ins)."""
+    from bokego_tpu import cli as jcli
+    from bokego_tpu.gtp import engine as jengine
+
+    seen = {}
+
+    class Capture:
+        def __init__(self, ev, params, scfg, ecfg):
+            seen.update(scfg=scfg, ecfg=ecfg)
+
+        def start(self):
+            pass
+
+    monkeypatch.setattr(jengine, "GTPEngine", Capture)
+    monkeypatch.setattr(jcli, "load_variables", lambda path, kind: None)
+    jcli.main(flags)
+    return seen["scfg"], seen["ecfg"]
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--simulate"],
+        ["--leaf-batch", "4"],
+        ["--leaf-batch", "1"],
+        ["--fast", "--simulate", "-r", "64"],
+        ["--fast", "--leaf-batch", "16", "--forest", "8", "--strong"],
+        ["--simulate", "--leaf-batch", "8", "--noise", "0.25", "--expand-thresh", "7", "--max-nodes", "2048"],
+    ],
+    ids=lambda f: "".join(f).replace("--", "_"),
+)
+def test_unported_configurations_raise(flags, monkeypatch):
+    """``--simulate`` and ``--leaf-batch`` no longer raise: the CLI maps them
+    (and every other flag) to the ``SearchConfig`` and ``EngineConfig`` that
+    the JAX CLI gives its engine on a CPU backend, and an engine is built
+    for that configuration."""
     from bokego_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GTPEngine(fake_evaluator(), None, SearchConfig(no_sim=False), EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GTPEngine(fake_evaluator(), None, SearchConfig(leaf_batch=4), EngineConfig(), device="cpu")
     cpu = torch.device("cpu")
-    for flags in (["--simulate"], ["--leaf-batch", "4"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.search_config(cli.build_parser().parse_args(flags), cpu)
-    # --fast selects the kernels only on a CUDA device
+    args = cli.build_parser().parse_args(flags)
+    jscfg, jecfg = _jax_cli_search_config(monkeypatch, flags)
+    scfg = cli.search_config(args, cpu)
+    assert dataclasses.asdict(scfg) == dataclasses.asdict(jscfg)
+    assert args.forest == jecfg.forest_size and args.r == jecfg.n_rollouts
+    eng = GTPEngine(fake_evaluator(), None, scfg, EngineConfig(), device="cpu")
+    assert eng._w == (1.0 if scfg.no_sim else 0.5)
+
+
+@pytest.mark.parametrize("flags", [["--simulate", "-r", "4"], ["--leaf-batch", "4", "-r", "16"]])
+def test_cli_raises_without_gpu(flags, monkeypatch):
+    """Like every entry point of the port, the CLI wants the GPU for these
+    flags too and raises when there is none, unless asked for the CPU."""
+    from bokego_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(flags + ["--no-ponder"])
+
+
+def test_cli_presets_on_a_cuda_device():
+    """``--fast`` selects the kernels only on a CUDA device, and never with
+    ``--simulate`` or ``--leaf-batch`` (the kernels are no_sim, K=1)."""
+    from bokego_tpu_torch import cli
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
     args = cli.build_parser().parse_args(["--fast", "--strong", "--noise", "0.25"])
     assert cli.search_config(args, cpu) == SearchConfig(
         expand_thresh=16, max_nodes=65536, noise_weight=0.25
     )
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        fast = cli.search_config(args, torch.device("cuda"))
+        fast = cli.search_config(args, cuda)
+        sim = cli.search_config(cli.build_parser().parse_args(["--fast", "--simulate"]), cuda)
+        leaf = cli.search_config(cli.build_parser().parse_args(["--fast", "--leaf-batch", "8"]), cuda)
     assert fast.use_kernel and fast.eval_every == 8 and fast.kernel_levels == 8
     assert fast.max_nodes == 65536 and fast.expand_thresh == 16
+    assert sim == SearchConfig(no_sim=False, use_kernel=False, eval_every=8, max_nodes=512)
+    assert leaf == SearchConfig(leaf_batch=8, use_kernel=False, eval_every=1, max_nodes=512)
 
 
 # ---------------------------------------------------------------------------

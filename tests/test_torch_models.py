@@ -151,3 +151,28 @@ def test_init_trees_real_net_matches_jax():
     np.testing.assert_allclose(tt.value[:, 0].numpy(), np.asarray(jt.value)[:, 0], rtol=0, atol=ATOL)
     np.testing.assert_array_equal(np.delete(tp, 3, axis=2), np.delete(jp, 3, axis=2))
     np.testing.assert_array_equal(tt.n_nodes.numpy(), np.asarray(jt.n_nodes))
+
+
+def test_policy_v2_matches_jax():
+    """The legacy ``PolicyNetV2`` (fixed widths 64 and 128, no BatchNorm)
+    after ``policy_v2_from_flax``: logits within 1e-5 of the Flax net, and
+    the state dict is the inverse of the JAX package's
+    ``policy_v2_from_torch``."""
+    rng = np.random.default_rng(5)
+    variables = jax.tree.map(
+        lambda x: (np.asarray(x) + rng.normal(0.0, 0.02, x.shape)).astype(np.float32),
+        jnets.PolicyNetV2().init(jax.random.PRNGKey(5), np.zeros((1, 9, 9, 27), np.float32)),
+    )
+    net = tnets.PolicyNetV2()
+    state = tconvert.policy_v2_from_flax(variables)
+    net.load_state_dict(state)
+    fts = _features(9)
+    want = np.asarray(jinference.policy_logits_v2(variables, fts))
+    got = tinference.policy_logits_v2(net.eval(), torch.from_numpy(np.array(fts))).numpy()
+    assert got.shape == (8, 81) and float(np.abs(want).max()) > 1e-2
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    back = jconvert.policy_v2_from_torch(state)["params"]
+    for (path, a), (_, b) in zip(
+        jax.tree_util.tree_leaves_with_path(back), jax.tree_util.tree_leaves_with_path(dict(variables["params"]))
+    ):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=str(path))

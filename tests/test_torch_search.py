@@ -158,19 +158,28 @@ def test_non_kernel_search_matches_kernel_path(expand_thresh):
     ids=["simulation_mode", "leaf_parallel"],
 )
 def test_unported_paths_raise(cfg):
-    """Paths outside the ported slices raise instead of falling back; the
-    non-kernel path and root noise no longer do."""
-    ts = to_port(random_positions(22, 2, 4))
-    for call in (
-        lambda: tmcts.init_trees(ts, fake_evaluator(), None, TConfig(**cfg)),
-        lambda: tmcts.search_step(None, fake_evaluator(), None, TConfig(**cfg)),
-        lambda: tmcts.run_search(None, fake_evaluator(), None, TConfig(**cfg), 4),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    plain = TConfig(**dict(PLAIN, noise_weight=0.25))
+    """No search path is left that raises ``NotImplementedError``: simulation
+    mode (through the non-kernel path even where the kernels are asked for,
+    as in the JAX package) and a configuration with ``leaf_batch`` run
+    through ``init_trees``, ``search_step`` and ``run_search`` and count
+    their rollouts.  What still raises is what cannot run at all: simulation
+    mode without a generator.  Root noise runs as before."""
     import torch
 
+    ts = to_port(random_positions(22, 2, 4))
+    tcfg = TConfig(**dict(cfg, max_turns=12))
+    gen = torch.Generator().manual_seed(0)
+    trollout.reset_launches()
+    trees = tmcts.init_trees(ts, fake_evaluator(), None, tcfg)
+    trees = tmcts.search_step(trees, fake_evaluator(), None, tcfg, gen=gen)
+    trees = tmcts.run_search(trees, fake_evaluator(), None, tcfg, 4, gen=gen)
+    assert trees.root_stats[:, 0].tolist() == [5.0, 5.0]
+    assert trollout.launches == {"descend_backprop": 0, "write_rows": 0}
+    if not tcfg.no_sim:
+        assert bool((trees.root_stats[:, 1] != 0).all())  # five playouts of +-1 each
+        with pytest.raises(ValueError, match="Generator"):
+            tmcts.run_search(trees, fake_evaluator(), None, tcfg, 1)
+    plain = TConfig(**dict(PLAIN, noise_weight=0.25))
     trees = tmcts.init_trees(ts, fake_evaluator(), None, plain, gen=torch.Generator().manual_seed(0))
     trees = tmcts.search_step(trees, fake_evaluator(), None, plain)
     assert trees.root_stats[:, 0].tolist() == [1.0, 1.0]
