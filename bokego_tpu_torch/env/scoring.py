@@ -7,7 +7,8 @@ until each board double-passes, Tromp-Taylor-colours every finished board
 (:func:`bokego_tpu_torch.env.rules.area_colors`) and takes each point's
 majority colour across the K resolutions: stones on points the opponent
 ends up owning dissolve in the vote.  ``resolved_score`` turns the vote into
-a score.
+a score; ``ownership_batch`` / ``resolved_scores`` do the same for a batch
+of boards in one batch of playouts.
 
 Uniform random resolution (not policy-guided) by default: it needs no nets
 and cannot inherit a net's blind spots; ``probs_fn`` upgrades it to policy
@@ -48,6 +49,44 @@ def _resolve(gen: torch.Generator, states: GoState, num_steps: int, probs_fn=Non
     return states
 
 
+def ownership_batch(
+    gen: torch.Generator,
+    states: GoState,
+    n_playouts: int = 127,
+    num_steps: int = 128,
+    probs_fn=None,
+) -> torch.Tensor:
+    """int8[B, 81] majority owner of every point of every board: BLACK,
+    WHITE, or EMPTY (no majority, or neutral throughout).  The K playouts of
+    all boards run as one batch (board b's copies are rows ``b*K .. b*K +
+    K - 1``).  An odd ``n_playouts`` avoids exact ties on settled points."""
+    batch = states.board.shape[0]
+    copies = states.map(lambda x: x.repeat_interleave(n_playouts, 0))
+    final = _resolve(gen, copies, num_steps, probs_fn)
+    colors = rules.area_colors(final.board).reshape(batch, n_playouts, NN)
+    b_votes = (colors == BLACK).sum(1)
+    w_votes = (colors == WHITE).sum(1)
+    neutral = n_playouts - b_votes - w_votes
+    return torch.where(
+        b_votes > w_votes + neutral, BLACK, torch.where(w_votes > b_votes + neutral, WHITE, EMPTY)
+    ).to(torch.int8)
+
+
+def resolved_scores(
+    gen: torch.Generator,
+    states: GoState,
+    n_playouts: int = 127,
+    num_steps: int = 128,
+    probs_fn=None,
+) -> torch.Tensor:
+    """(B,) dead-group-aware area scores, black minus (white + komi): each
+    point goes to its majority owner; contested points go to neither side."""
+    own = ownership_batch(gen, states, n_playouts, num_steps, probs_fn)
+    b = (own == BLACK).sum(-1, dtype=torch.float32)
+    w = (own == WHITE).sum(-1, dtype=torch.float32)
+    return b - w - states.komi
+
+
 def ownership(
     gen: torch.Generator,
     state: GoState,
@@ -55,18 +94,8 @@ def ownership(
     num_steps: int = 128,
     probs_fn=None,
 ) -> torch.Tensor:
-    """int8[81] majority owner of every point of ``state`` (a batch of one):
-    BLACK, WHITE, or EMPTY (no majority, or neutral throughout).  An odd
-    ``n_playouts`` avoids exact ties on settled points."""
-    batch = state.map(lambda x: x[:1].repeat_interleave(n_playouts, 0))
-    final = _resolve(gen, batch, num_steps, probs_fn)
-    colors = rules.area_colors(final.board)  # (K, 81)
-    b_votes = (colors == BLACK).sum(0)
-    w_votes = (colors == WHITE).sum(0)
-    neutral = n_playouts - b_votes - w_votes
-    return torch.where(
-        b_votes > w_votes + neutral, BLACK, torch.where(w_votes > b_votes + neutral, WHITE, EMPTY)
-    ).to(torch.int8)
+    """int8[81] majority owner of every point of ``state`` (a batch of one)."""
+    return ownership_batch(gen, state.map(lambda x: x[:1]), n_playouts, num_steps, probs_fn)[0]
 
 
 def resolved_score(
@@ -76,13 +105,8 @@ def resolved_score(
     num_steps: int = 128,
     probs_fn=None,
 ) -> torch.Tensor:
-    """Dead-group-aware area score of ``state`` (a batch of one), black minus
-    (white + komi): each point goes to its majority owner; contested points
-    go to neither side."""
-    own = ownership(gen, state, n_playouts, num_steps, probs_fn)
-    b = (own == BLACK).sum(dtype=torch.float32)
-    w = (own == WHITE).sum(dtype=torch.float32)
-    return b - w - state.komi[0]
+    """The resolved score of ``state`` (a batch of one), as a scalar."""
+    return resolved_scores(gen, state.map(lambda x: x[:1]), n_playouts, num_steps, probs_fn)[0]
 
 
 def dead_stones(owner: torch.Tensor, board: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,11 @@ and as ``--simulate -r 8``, each after a warm-up and three generated moves:
 * one more ``genmove`` under ``torch.profiler``: device time by kernel, the
   device's busy and idle share, K1 and K2 launches.
 
+Then the training path: one AlphaZero self-play move at the trainer's
+search (B=64, 64 rollouts, non-kernel) split into ``init_trees``, the
+descents, the leaf evaluations and the backprops, and one SL step at B=256
+split into the batch's featurisation and the step; each profiled as above.
+
 Needs a GPU; it raises without one.
 """
 
@@ -39,12 +44,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import subprocess
 import time
 
 import torch
 
 from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG as CFG, POLICY_WEIGHTS, VALUE_WEIGHTS
+from bokego_tpu_torch.device import fp32_only
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.models import nets
 from bokego_tpu_torch.ops import rollout
@@ -142,11 +149,19 @@ SEARCH_PHASES = (
 )
 
 
+# The phases of a non-kernel rollout step (the AlphaZero trainer's search).
+ROLLOUT_PHASES = (
+    ("descents", mcts, "_descend_batch"),
+    ("leaf evaluations (features, nets, expansion)", mcts, "_eval_and_expand"),
+    ("backprops", mcts, "_backprop_batch"),
+)
+
+
 @contextlib.contextmanager
-def timed_phases(log: dict[str, list[float]]):
-    """While open, every call of a ``SEARCH_PHASES`` function ends in a device
+def timed_phases(log: dict[str, list[float]], phases=SEARCH_PHASES):
+    """While open, every call of a function of ``phases`` ends in a device
     synchronise and adds its host time to ``log[label]``."""
-    plain = [(module, name, getattr(module, name)) for _, module, name in SEARCH_PHASES]
+    plain = [(module, name, getattr(module, name)) for _, module, name in phases]
 
     def timed(label, fn):
         def call(*args, **kwargs):
@@ -156,7 +171,7 @@ def timed_phases(log: dict[str, list[float]]):
 
         return call
 
-    for (label, module, name), (_, _, fn) in zip(SEARCH_PHASES, plain):
+    for (label, module, name), (_, _, fn) in zip(phases, plain):
         setattr(module, name, timed(label, fn))
     try:
         yield
@@ -195,10 +210,55 @@ def served_move(dev, params, flags: list[str]) -> None:
     print_profile(f"served move ({' '.join(flags)})", lambda: eng.send("genmove black"))
 
 
+def training_moves(dev, params) -> None:
+    """Split and profile of one AlphaZero self-play move and one SL step."""
+    import numpy as np
+
+    from bokego_tpu_torch.train import alphazero as az
+    from bokego_tpu_torch.train import gendata, sl
+
+    cfg = az.default_config(80)
+    ev = mcts.net_evaluator()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    roots = gendata.generate(gen, params["policy"], 64, max_turns=20).final  # midgame roots
+    trees, t_init = _sync_time(lambda: mcts.init_trees(roots, ev, params, cfg, gen=gen))
+    inside = {}
+    with timed_phases(inside, ROLLOUT_PHASES):
+        _, t_search = _sync_time(lambda: mcts.run_search(trees, ev, params, cfg, 64, gen=gen))
+    phases = "; ".join(f"{len(v)} {k} {1e3 * sum(v):.2f} ms" for k, v in inside.items())
+    print(
+        f"AlphaZero self-play move (B=64, 64 rollouts): init_trees {1e3 * t_init:.2f} ms, 64 rollouts "
+        f"{1e3 * t_search:.2f} ms ({1e3 * t_search / 64:.2f} ms a rollout step); of the rollouts: {phases}"
+    )
+
+    def az_move():
+        t = mcts.init_trees(roots, ev, params, cfg, gen=gen)
+        mcts.run_search(t, ev, params, cfg, 64, gen=gen)
+
+    print_profile("AlphaZero self-play move (B=64, 64 rollouts)", az_move)
+
+    packed = gendata.trajectory_to_packed(gendata.generate(gen, params["policy"], 256, max_turns=40))
+    batches = packed.batches(256, np.random.default_rng(0), device=dev)
+    net = copy.deepcopy(params["policy"]).train()
+    opt = sl.make_optimizer(net, 1e-4)
+    for _ in range(3):  # warm-up
+        fts, moves = next(batches)
+        sl.train_step(net, opt, sl.policy_loss, fts, torch.as_tensor(moves, device=dev).long())
+    (fts, moves), t_feat = _sync_time(lambda: next(batches))
+    targets = torch.as_tensor(moves, device=dev).long()
+    _, t_step = _sync_time(lambda: sl.train_step(net, opt, sl.policy_loss, fts, targets))
+    print(f"SL policy step (B=256): featurise the batch {1e3 * t_feat:.2f} ms, forward + backward + Adam {1e3 * t_step:.2f} ms")
+
+    def sl_step():
+        f, m = next(batches)
+        sl.train_step(net, opt, sl.policy_loss, f, torch.as_tensor(m, device=dev).long())
+
+    print_profile("SL policy step (B=256)", sl_step)
+
+
 def main():
     dev = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32_only()
     params = {"policy": nets.init_policy(128, seed=0, device=dev), "value": nets.load_value(VALUE_WEIGHTS, device=dev)}
     ev = mcts.net_evaluator()
     states = st.new_game_batch(BENCH_BATCH, device=dev)
@@ -229,6 +289,7 @@ def main():
         ["-r", "8", "--simulate"],
     ):
         served_move(dev, served, flags)
+    training_moves(dev, served)
 
 
 if __name__ == "__main__":

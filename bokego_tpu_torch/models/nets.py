@@ -10,6 +10,12 @@ triples at indices 0..20 and the untied-bias 1x1 head at 21.
 Inputs are NHWC ``(B, 9, 9, 27)`` like the JAX nets; the modules permute to
 NCHW inside.  Convolutions go to ``torch.nn.functional.conv2d`` (the JAX
 package leaves them to XLA, outside any Pallas kernel).
+
+BatchNorm in ``train()`` mode follows Flax's ``nn.BatchNorm``, not torch's:
+it normalises by the biased batch variance and folds that same biased
+variance into ``running_var`` (torch folds in the unbiased one, a factor
+``n / (n - 1)``: 3 % for ``lin_bn`` at a batch of 32).  In ``eval()`` mode
+it is the stock layer.
 """
 
 from __future__ import annotations
@@ -19,6 +25,36 @@ from torch import nn
 
 from bokego_tpu_torch.coords import NN
 from bokego_tpu_torch.device import resolve_device
+
+
+class _FlaxStatsBatchNorm:
+    """Train-mode forward with Flax's statistics (``momentum=0.1`` here is
+    Flax's ``momentum=0.9``): ``y = (x - mean) * (weight * rsqrt(var + eps))
+    + bias`` over the biased batch variance, and the running averages
+    ``0.9 * running + 0.1 * batch`` of the mean and that variance."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = x.mean(dims)
+        var = x.var(dims, correction=0)
+        with torch.no_grad():
+            decay = 1.0 - self.momentum
+            self.running_mean.copy_(decay * self.running_mean + (1.0 - decay) * mean)
+            self.running_var.copy_(decay * self.running_var + (1.0 - decay) * var)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
+class BatchNorm2d(_FlaxStatsBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_FlaxStatsBatchNorm, nn.BatchNorm1d):
+    pass
 
 
 class UntiedBiasConv(nn.Module):
@@ -41,7 +77,7 @@ def _trunk(channels: int) -> nn.Sequential:
     for k in [5] + [3] * 6:
         layers += [
             nn.Conv2d(in_ch, channels, k, padding=k // 2),
-            nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1),
+            BatchNorm2d(channels, eps=1e-5, momentum=0.1),
             nn.ReLU(),
         ]
         in_ch = channels
@@ -70,9 +106,9 @@ class ValueNet(nn.Module):
     def __init__(self, channels: int = 128):
         super().__init__()
         self.conv = _trunk(channels)
-        self.bn = nn.BatchNorm2d(1, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(1, eps=1e-5, momentum=0.1)
         self.lin1 = nn.Linear(NN, 64)
-        self.lin_bn = nn.BatchNorm1d(64, eps=1e-5, momentum=0.1)
+        self.lin_bn = BatchNorm1d(64, eps=1e-5, momentum=0.1)
         self.lin2 = nn.Linear(64, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -118,20 +154,34 @@ def init_value(channels: int = 128, seed: int = 1, device=None) -> ValueNet:
     return net.to(dev).eval()
 
 
-def _load(cls, path: str, device):
+def value_from_policy(value: ValueNet, policy: PolicyNet) -> ValueNet:
+    """Copy a policy's trunk (weights and BatchNorm statistics) into
+    ``value`` in place and return it (``bokego_tpu.models.value_from_policy``;
+    the reference's ``ValueNet.load_policy_dict``)."""
+    value.conv.load_state_dict(policy.conv.state_dict())
+    return value
+
+
+def from_state_dict(kind: str, sd: dict, device=None) -> PolicyNet | ValueNet:
+    """A ``"policy"`` or ``"value"`` net of the state dict's width, loaded
+    from ``sd`` (or from a checkpoint payload's ``model_state_dict``), in
+    eval mode on ``device``."""
     dev = resolve_device(device)
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("model_state_dict", ckpt)
-    net = cls(sd["conv.0.weight"].shape[0])
+    sd = sd.get("model_state_dict", sd)
+    net = (PolicyNet if kind == "policy" else ValueNet)(sd["conv.0.weight"].shape[0])
     net.load_state_dict(sd)
     return net.to(dev).eval()
 
 
+def _load(kind: str, path: str, device):
+    return from_state_dict(kind, torch.load(path, map_location="cpu", weights_only=True), device)
+
+
 def load_policy(path: str, device=None) -> PolicyNet:
     """A reference-format policy checkpoint (``{"model_state_dict": …}``)."""
-    return _load(PolicyNet, path, device)
+    return _load("policy", path, device)
 
 
 def load_value(path: str, device=None) -> ValueNet:
     """A reference-format value checkpoint (``{"model_state_dict": …}``)."""
-    return _load(ValueNet, path, device)
+    return _load("value", path, device)

@@ -49,10 +49,27 @@ Phases (any failure exits non-zero; nothing is caught):
     referee; s/genmove, rollouts/s, leaf evaluations with their batch and
     plies per playout are printed.
 
-The last two lines of standard output are the kernels' JSON record (K1 and
-K2 once at the self-play path's shapes and once at the serving path's) and
-the device line ``{"ok": true, "device": {...}}``; the line before them is
-``nvidia-smi``'s name and power limit.
+14. gendata: ``gendata.generate`` of the shipped ``policy_17.pt`` at B=512,
+    70 turns, packed x8 into ``.pshard.npz`` shards;
+15. one SL step (train-mode BatchNorm, Adam) of the policy and of the value
+    net on the same batch, GPU against CPU: loss, gradients, statistics;
+16. SL of the policy (on the moves) and of the shipped value net (on each
+    game's outcome) for 200 steps at B=256 from those positions, features
+    computed on the device per batch: ms/step, positions/s;
+17. genvals: one batch of 512 labelled positions, resolved labels;
+18. one REINFORCE iteration (``-b 16 --max-turns 70``), self-play and update
+    timed apart;
+19. the AlphaZero trajectory with the deterministic evaluator at temperature
+    0 without noise, GPU against CPU, then one iteration at B=64, 80 moves,
+    64 rollouts with the shipped nets (self-play and update timed apart);
+    phases 14-19 launch neither kernel (counts read around them);
+20. every training entry point (``python -m bokego_tpu_torch.bin.<name>``)
+    as a process on the GPU at a small size, ``alphazero --resume`` too.
+
+The last three lines of standard output are the training phases' figures,
+the kernels' JSON record (K1 and K2 once at the self-play path's shapes and
+once at the serving path's) and the device line ``{"ok": true, "device":
+{...}}``; the line before them is ``nvidia-smi``'s name and power limit.
 """
 
 from __future__ import annotations
@@ -78,6 +95,9 @@ SIM_ROLLOUTS = 16  # rollouts per generated move of the --simulate session: ever
 # rollout plays its leaf to the end of the game (up to 82 plies, each a policy
 # forward and a host read), about 1 s a rollout on an H100 (PERF.md)
 FUSED = 8  # rollouts per launch in the K1 check: the main path's eval_every
+GEN_BATCH = 512  # games of the gendata phase and positions of the genvals batch
+SL_BATCH, SL_STEPS = 256, 200  # SL phase: steps at this batch, policy and value
+AZ_BATCH, AZ_MOVES, AZ_ROLLOUTS = 64, 80, 64  # the AlphaZero iteration (bin defaults but the batch)
 
 
 def log(msg: str) -> None:
@@ -749,14 +769,217 @@ def serving_phases(dev, roots):
     return records, fast_counts
 
 
+def _sl_step_gpu_vs_cpu(dev, kind: str, net, fts, targets) -> dict:
+    """Phase 15: one SL step (train-mode BatchNorm, Adam) of the same net on
+    the same batch on the GPU and on the CPU: the loss, every gradient and
+    the updated running statistics.  cuDNN and the CPU sum in different
+    orders, so the loss is held to rtol 1e-4, the statistics to rtol 1e-4 +
+    atol 1e-5, and each gradient tensor to a relative error (Frobenius) of
+    1e-2: a ReLU whose input lies within rounding of 0 passes or blocks its
+    gradient depending on that order.  The biases that feed a BatchNorm have
+    a gradient of 0 in real arithmetic; theirs are held to 1e-4 of the
+    largest gradient norm instead."""
+    from bokego_tpu_torch.train import sl
+
+    loss_fn = sl.value_loss if kind == "value" else sl.policy_loss
+    out = []
+    for d in (dev, torch.device("cpu")):
+        n = copy.deepcopy(net).to(d).train()
+        opt = sl.make_optimizer(n, 1e-3)
+        loss = sl.train_step(n, opt, loss_fn, fts.to(d), targets.to(d))
+        out.append((float(loss), {k: p.grad.cpu() for k, p in n.named_parameters()},
+                    {k: v.cpu() for k, v in n.state_dict().items() if "running" in k}))
+    (lg, gg, sg), (lc, gc, sc) = out
+    check(abs(lg - lc) <= 1e-4 * abs(lc), f"SL {kind} step loss GPU {lg} vs CPU {lc}")
+    bn_fed = {f"conv.{i}.bias" for i in range(0, 21, 3)} | {"lin1.bias"}
+    scale = max(float(g.norm()) for g in gc.values())
+    errs = {k: float((gg[k] - gc[k]).norm() / gc[k].norm().clamp(min=1e-30)) for k in gc if k not in bn_fed}
+    noise = {k: float(gg[k].norm() + gc[k].norm()) / scale for k in gc if k in bn_fed}
+    worst = max(errs, key=errs.get)
+    log(f"SL {kind} step: gradient relative errors GPU vs CPU, largest {worst} {errs[worst]:.3g}, median "
+        f"{sorted(errs.values())[len(errs) // 2]:.3g}; BatchNorm-fed biases at most {max(noise.values()):.3g} of the scale")
+    check(errs[worst] <= 1e-2, f"SL {kind} step gradients GPU vs CPU: {worst} relative error {errs[worst]}")
+    check(max(noise.values()) <= 1e-4, f"SL {kind} step: BatchNorm-fed bias gradients {noise}")
+    worst = errs[worst]
+    for k in sc:
+        check(torch.allclose(sg[k], sc[k], rtol=1e-4, atol=1e-5), f"SL {kind} step {k} GPU vs CPU")
+    return {"loss_gpu": lg, "loss_cpu": lc, "grad_rel_err": worst}
+
+
+def _timed(dev, fn):
+    torch.cuda.synchronize(dev)
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.monotonic() - t0
+
+
+def training_phases(dev) -> dict:
+    """Phases 14-20: the training stack at full width (128-channel nets,
+    the shipped ``policy_17.pt`` / ``value_r2.pt``); returns the figures."""
+    import numpy as np
+
+    from bokego_tpu_torch.config import POLICY_WEIGHTS, SearchConfig, VALUE_WEIGHTS
+    from bokego_tpu_torch.env import rules
+    from bokego_tpu_torch.models import nets
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.train import alphazero as az
+    from bokego_tpu_torch.train import data, gendata, genvals, reinforce, sl
+    from tests.torch_fake_eval import fake_evaluator
+
+    figures = {}
+    policy = nets.load_policy(POLICY_WEIGHTS, device=dev)
+    value = nets.load_value(VALUE_WEIGHTS, device=dev)
+    rollout.reset_launches()
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    # 14. gendata: self-play of the shipped policy into packed shards (x8 D4)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    traj, dt = _timed(dev, lambda: gendata.generate(gen, policy, GEN_BATCH, max_turns=70))
+    t0 = time.monotonic()
+    packed = gendata.trajectory_to_packed(traj, augment=True)
+    paths = data.save_shards(os.path.join(work, "sp"), packed, shard_size=131072)
+    dt_pack = time.monotonic() - t0
+    moves = int((traj.actions < 81).sum())
+    check(len(packed) == 8 * moves and not bool(traj.final.invalid.any()), "gendata: packed size or illegal move")
+    figures["gendata"] = dict(games=GEN_BATCH, plies=71, moves=moves, selfplay_s=dt, moves_per_s=moves / dt,
+                              pack_s=dt_pack, packed_positions=len(packed))
+    log(f"gendata: B={GEN_BATCH} max_turns=70: {moves} moves in {dt:.3f} s ({moves / dt:.1f} positions/s of "
+        f"self-play); packed x8 into {len(paths)} shards of {len(packed)} positions in {dt_pack:.3f} s")
+
+    # 15. one SL step, GPU vs CPU, policy and value, on the first B positions
+    shards = data.ShardedDataset(paths)
+    fts, moves_t = next(shards.batches(SL_BATCH, np.random.default_rng(0), device=dev))
+    outcome = torch.where(rules.score(traj.final) > 0, 1.0, -1.0)  # black's result per game
+    step_checks = {
+        "policy": _sl_step_gpu_vs_cpu(dev, "policy", policy, fts, torch.as_tensor(moves_t, device=dev).long()),
+        "value": _sl_step_gpu_vs_cpu(dev, "value", value, fts, torch.ones(SL_BATCH, device=dev)),
+    }
+    log(f"SL step GPU vs CPU (B={SL_BATCH}): {step_checks}")
+
+    # 16. SL at B=SL_BATCH from the shards: the policy on the moves, the
+    # value net on each game's outcome from the side to move
+    n = SL_STEPS * SL_BATCH
+    keep = (traj.actions < 81).cpu().numpy().reshape(-1)  # the packed positions, in (ply, game) order
+    game = np.tile((np.arange(keep.size) % GEN_BATCH)[keep], 8)
+    z = outcome.cpu().numpy()[game] * np.where(packed.turn == 0, 1.0, -1.0)
+    subsets = {
+        "policy": data.PackedDataset(packed.boards[:n], packed.ko[:n], packed.last[:n], packed.turn[:n],
+                                     packed.targets[:n], False),
+        "value": data.PackedDataset(packed.boards[:n], packed.ko[:n], packed.last[:n], packed.turn[:n],
+                                    z[:n].astype(np.float32), True),
+    }
+    for kind, net0 in (("policy", policy), ("value", value)):
+        net = copy.deepcopy(net0)
+        state, dt = _timed(dev, lambda: sl.train(subsets[kind], net, kind=kind, batch_size=SL_BATCH, lr=1e-4,
+                                                 log_every=SL_STEPS // 4, log_fn=log))
+        check(len(state.losses) == 4 and all(np.isfinite(state.losses)), f"SL {kind}: losses {state.losses}")
+        figures[f"sl_{kind}"] = dict(steps=SL_STEPS, batch=SL_BATCH, s=dt, ms_per_step=1e3 * dt / SL_STEPS,
+                                     positions_per_s=n / dt, losses=state.losses, step_gpu_vs_cpu=step_checks[kind])
+        log(f"SL {kind}: {SL_STEPS} steps at B={SL_BATCH} in {dt:.3f} s: {1e3 * dt / SL_STEPS:.3f} ms/step, "
+            f"{n / dt:.1f} positions/s; losses {[round(x, 4) for x in state.losses]}")
+        del net
+
+    # 17. genvals: one batch of GEN_BATCH labelled positions, resolved labels
+    gen = torch.Generator(device=dev).manual_seed(11)
+    samples, dt = _timed(dev, lambda: genvals.generate(gen, policy, policy, GEN_BATCH))
+    rows = genvals.samples_to_rows(samples)
+    check(len(rows) > GEN_BATCH // 2 and {v for *_, v in rows} <= {0, 1}, f"genvals: {len(rows)} rows")
+    figures["genvals"] = dict(batch=GEN_BATCH, samples=len(rows), s=dt, positions_per_s=len(rows) / dt)
+    log(f"genvals: B={GEN_BATCH}: {len(rows)} labelled positions in {dt:.3f} s ({len(rows) / dt:.1f} positions/s)")
+
+    # 18. one REINFORCE iteration (-b 16 --max-turns 70) against a pool copy
+    net, opp = copy.deepcopy(policy), copy.deepcopy(policy)
+    timings = []
+    gen = torch.Generator(device=dev).manual_seed(12)
+    res, dt = _timed(dev, lambda: reinforce.train_epoch(gen, net, opp, n_iters=1, batch_games=16, max_turns=70,
+                                                        log_fn=log, timings=timings))
+    check(len(res.winrates) == 2 and any(not torch.equal(a, b) for a, b in zip(net.parameters(), opp.parameters())),
+          "REINFORCE: no update")
+    figures["reinforce"] = dict(s_per_iteration=dt, colour_batches=timings)
+    log(f"REINFORCE: one iteration (2 x 16 games, 70 turns) in {dt:.3f} s: {timings}")
+    del net, opp
+
+    # 19. AlphaZero trajectory GPU vs CPU (deterministic evaluator,
+    # temperature 0, no noise), then one iteration at full width
+    cfg = SearchConfig(expand_thresh=2, no_sim=True, max_nodes=128, noise_weight=0.0, max_turns=20)
+    trajs = [az.selfplay_with_targets(torch.Generator(device=d).manual_seed(0), fake_evaluator(), None, cfg, 6, 8, 24,
+                                      device=d) for d in (dev, "cpu")]
+    for f in ("board", "turn", "ko", "last_move"):
+        check(torch.equal(getattr(trajs[0].states, f).cpu(), getattr(trajs[1].states, f)), f"AZ trajectory {f} GPU vs CPU")
+    check(torch.equal(trajs[0].dists.cpu(), trajs[1].dists) and torch.equal(trajs[0].live.cpu(), trajs[1].live),
+          "AZ visit distributions GPU vs CPU")
+    log("AZ trajectory (B=6, 8 moves, 24 rollouts, temperature 0, no noise): GPU equals CPU")
+    pol, val = copy.deepcopy(policy), copy.deepcopy(value)
+    timings = []
+    state, dt = _timed(dev, lambda: az.train(0, pol, val, iters=1, batch=AZ_BATCH, n_moves=AZ_MOVES,
+                                             n_rollouts=AZ_ROLLOUTS, log_fn=log, timings=timings))
+    check(any(not torch.equal(a, b) for a, b in zip(pol.parameters(), policy.parameters())), "AZ: no policy update")
+    figures["alphazero"] = dict(batch=AZ_BATCH, moves=AZ_MOVES, rollouts=AZ_ROLLOUTS, s_per_iteration=dt, **timings[0])
+    log(f"AlphaZero: one iteration (B={AZ_BATCH}, {AZ_MOVES} moves, {AZ_ROLLOUTS} rollouts) in {dt:.3f} s: "
+        f"self-play {timings[0]['selfplay_s']:.3f} s, update {timings[0]['update_s']:.3f} s")
+    del pol, val, state
+
+    counts = dict(rollout.launches)
+    check(all(v == 0 for v in counts.values()), f"kernel launches on the training phases: {counts}")
+    log(f"training phases: kernel launches {counts}")
+    del policy, value
+    torch.cuda.empty_cache()
+
+    # 20. every training entry point once as a process, at a small size
+    figures["clis"] = train_clis(work)
+    return figures
+
+
+def train_clis(work: str) -> dict:
+    """Phase 20: ``python -m bokego_tpu_torch.bin.<name>`` on the GPU (the
+    default device), one after another, each at a small size."""
+    from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    runs = [
+        ("gen_policy_data", ["-n", "64", "--batch", "64", "--max-turns", "30", "-o", "cli", "--packed",
+                             "--policy", POLICY_WEIGHTS]),
+        ("gen_policy_data", ["-n", "16", "--batch", "16", "--max-turns", "20", "-o", "cli.csv"]),
+        ("process_data", ["cli.csv", "cli_shard", "--shards", "--shard-size", "4096"]),
+        ("process_data", ["cli.csv", "cli.npz"]),
+        ("train", ["-d", "cli-c000-00000.pshard.npz", "--kind", "policy", "--bs", "256", "--lr", "1e-4",
+                   "-o", "cli_policy.pt"]),
+        ("train", ["-d", "cli.npz", "--kind", "policy", "--bs", "64", "-c", "cli_policy.pt", "-o", "cli_policy2.pt"]),
+        ("genvals", ["-n", "1", "--batch", "1024", "--max-turns", "30", "--min-r", "10", "--max-r", "20",
+                     "-o", "cli_v.csv", "--sl", POLICY_WEIGHTS]),
+        ("train", ["-d", "cli_v.csv", "--kind", "value", "--bs", "256", "--init-from-policy", POLICY_WEIGHTS,
+                   "-o", "cli_value.pt"]),
+        ("selfplay", ["-e", "1", "-n", "1", "-b", "8", "--max-turns", "30", "-w", "cli_pool", "-f", "cli_rl.txt"]),
+        ("alphazero", ["--iters", "1", "--batch", "4", "--moves", "6", "--rollouts", "16", "-o", "cli_az",
+                       "--policy", POLICY_WEIGHTS, "--value", VALUE_WEIGHTS]),
+        ("alphazero", ["--iters", "1", "--batch", "4", "--moves", "6", "--rollouts", "16", "-o", "cli_az", "--resume"]),
+    ]
+    took = {}
+    for name, args in runs:
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, "-m", f"bokego_tpu_torch.bin.{name}", *args], cwd=work, env=env,
+                              capture_output=True, text=True, timeout=300)
+        dt = time.monotonic() - t0
+        check(proc.returncode == 0, f"bin.{name} {args} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        took.setdefault(name, []).append(round(dt, 2))
+        log(f"bin.{name} {' '.join(args)}: exit 0 in {dt:.1f} s; last line: {proc.stdout.strip().splitlines()[-1]!r}")
+    check(os.path.exists(os.path.join(work, "cli_az_ckpt.pt")), "alphazero wrote no resume checkpoint")
+    with open(os.path.join(work, "cli_az_iter.txt")) as f:
+        check(f.read() == "2", "alphazero --resume did not continue at iteration 2")
+    return took
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_start = time.monotonic()
     dev = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from bokego_tpu_torch.device import fp32_only
+
+    fp32_only()
 
     from bokego_tpu_torch.config import BENCH_BATCH as BATCH, BENCH_CONFIG as CFG, VALUE_WEIGHTS
     from bokego_tpu_torch.env import rules, state as st
@@ -958,6 +1181,9 @@ def main() -> int:
     )
 
     records_serving, serve_counts = serving_phases(dev, roots)
+    del roots
+    torch.cuda.empty_cache()
+    train_figures = training_phases(dev)
 
     log(f"total: {time.monotonic() - t_start:.1f} s")
 
@@ -980,6 +1206,7 @@ def main() -> int:
         )
         for name in ("descend_backprop", "write_rows")
     ]
+    log(json.dumps({"training": train_figures}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -2,7 +2,9 @@
 and ``chip_smoke.py`` can use them where JAX is not installed):
 ``fake_evaluator`` is the port's copy of ``tests/test_mcts.py::fake_evaluator``
 and ``stones_evaluator`` of ``tests/test_leafpar.py::_stones_eval``;
-``onehot_evaluator`` makes simulation mode deterministic."""
+``onehot_evaluator`` makes simulation mode deterministic, and
+``OneHotPolicyNet`` is a policy-net stand-in with the same property for
+the trainers' playouts."""
 
 from __future__ import annotations
 
@@ -52,6 +54,31 @@ def onehot_policy(params, states) -> torch.Tensor:
 def onehot_evaluator() -> mcts.Evaluator:
     """``fake_evaluator`` with the one-hot playout policy."""
     return mcts.Evaluator(evaluate=_evaluate, has_value=True, policy_probs=onehot_policy)
+
+
+class OneHotPolicyNet(torch.nn.Module):
+    """A policy net stand-in: from the feature planes alone, logits of 0 on
+    one legal point (the ``(checksum + offset) % count``-th, the checksum
+    taken over the board read back from planes 0, 1 and 3) and -1e9
+    elsewhere, so ``softmax`` puts all mass on it and a playout's draws are
+    the same whatever the generator.  ``offset`` tells two nets apart.  The
+    one parameter only carries the device (and a zero gradient)."""
+
+    def __init__(self, offset: int = 0):
+        super().__init__()
+        self.offset = offset
+        self.anchor = torch.nn.Parameter(torch.zeros(()))
+
+    def forward(self, fts: torch.Tensor) -> torch.Tensor:
+        flat = fts.reshape(fts.shape[0], NN, fts.shape[-1])
+        black_to_move = flat[:, :1, 3] > 0
+        mine = torch.where(black_to_move, 1, 2)
+        board = torch.where(flat[..., 0] > 0, mine, torch.where(flat[..., 1] > 0, 3 - mine, 0))
+        weights = torch.arange(1, NN + 1, device=fts.device)
+        legal = flat[..., 5] > 0
+        pick = ((board * weights).sum(-1) + self.offset) % legal.sum(-1).clamp(min=1)
+        hot = legal & (legal.cumsum(-1) == pick[:, None] + 1)
+        return torch.where(hot, 0.0, -1e9) + 0.0 * self.anchor
 
 
 def stones_evaluator() -> mcts.Evaluator:
