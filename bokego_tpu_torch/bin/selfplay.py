@@ -32,6 +32,8 @@ def main(argv=None):
     from bokego_tpu_torch.train import checkpoints, reinforce
 
     latest = checkpoints.latest_policy(args.w)
+    # every generation this run will write, checked before any is played
+    checkpoints.next_generation(args.w, args.e + (latest is None))
     if latest is None:
         print("Empty pool: seeding policy_0 with fresh init")
         net = nets.init_policy(seed=args.seed, device=device)

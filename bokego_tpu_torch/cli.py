@@ -71,7 +71,7 @@ def load_variables(path: str | None, kind: str, device=None):
     if not path.endswith(".pt"):
         raise ValueError(
             f"{path}: the port reads torch .pt checkpoints only; export an orbax "
-            "directory with tools/export_policy_torch.py"
+            f"directory with tools/export_policy_torch.py --kind {kind}"
         )
     return (nets.load_policy if kind == "policy" else nets.load_value)(path, device=device)
 
@@ -106,11 +106,12 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     from bokego_tpu_torch.config import EngineConfig
-    from bokego_tpu_torch.device import resolve_device
+    from bokego_tpu_torch.device import fp32_only, resolve_device
     from bokego_tpu_torch.gtp.engine import GTPEngine
     from bokego_tpu_torch.search.mcts import net_evaluator
 
     device = resolve_device(args.device)
+    fp32_only()  # the nets serve in full fp32, as every parity check assumes
     scfg = search_config(args, device)
     params = {
         "policy": load_variables(args.p, "policy", device),

@@ -10,6 +10,13 @@ caller's ``torch.Generator``) and ``run_search`` on the non-kernel path
 Both nets stay in ``eval()`` mode throughout: the updates take gradients
 through the running BatchNorm statistics and leave them unchanged, as the
 JAX package's ``train=False``.
+
+Sharded over a data-parallel mesh (``mesh=``), each rank plays its rows of
+the global batch and the step keeps the JAX package's global
+normalisation (a plain ``jit`` under GSPMD there): the losses divide by the
+live moves of the whole batch, so each rank's loss is its share of the
+global mean and the shares and gradients are summed over the ranks, not
+averaged (per-shard means would weigh a shard's moves by its own count).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.env.state import GoState
 from bokego_tpu_torch.features import features_batch
 from bokego_tpu_torch.models.nets import PolicyNet, ValueNet
+from bokego_tpu_torch.parallel import mesh as mesh_lib
 from bokego_tpu_torch.search import mcts
 from bokego_tpu_torch.search.tree import C_N, take_rows
 
@@ -37,16 +45,23 @@ class AZTrajectory(NamedTuple):
     final: GoState  # (B, ...)
 
 
-def _sample_by_visits(gen: torch.Generator, visits: torch.Tensor, temperature: float) -> torch.Tensor:
+def gumbel(gen: torch.Generator, batch: int, device) -> torch.Tensor:
+    """``(batch, 81)`` standard Gumbel draws from ``gen`` (on ``device``)."""
+    u = torch.rand((batch, NN), generator=gen, device=device)
+    return -torch.log(-torch.log(u))
+
+
+def _sample_by_visits(noise: torch.Tensor, visits: torch.Tensor, temperature: float) -> torch.Tensor:
     """An action per row with probability proportional to
-    ``visits ** (1 / temperature)`` over the visited points; PASS where no
-    point has a visit."""
+    ``visits ** (1 / temperature)`` over the visited points, by the Gumbel
+    maximum with ``noise`` (:func:`gumbel`, as ``jax.random.categorical``
+    samples): each row reads its own noise row only, so a sharded run that
+    keeps its rows of the global draw samples as the unsharded run does.
+    PASS where no point has a visit."""
     logits = torch.log(visits.clamp(min=1e-9)) / temperature
     logits = torch.where(visits > 0, logits, -torch.inf)
-    any_visit = visits.sum(1) > 0
-    probs = torch.where(any_visit[:, None], torch.softmax(logits, dim=-1), 1.0)
-    actions = torch.multinomial(probs, 1, generator=gen)[:, 0]
-    return torch.where(any_visit, actions, PASS_ACTION)
+    actions = torch.argmax(logits + noise, dim=-1)
+    return torch.where(visits.sum(1) > 0, actions, PASS_ACTION)
 
 
 def selfplay_with_targets(
@@ -60,23 +75,35 @@ def selfplay_with_targets(
     temperature: float = 0.0,
     temp_moves: int | None = None,
     device=None,
+    mesh: mesh_lib.Mesh | None = None,
 ) -> AZTrajectory:
     """Play ``batch`` games of ``n_moves`` moves on ``device`` with a full
     search per move, recording the targets.
 
     ``temperature`` 0 plays the most-visited move; above 0 it samples by
     visits ** (1 / temperature), for the first ``temp_moves`` plies only
-    when that is set (greedy after)."""
-    s = st.new_game_batch(batch, device=device)
-    done = torch.zeros(batch, dtype=torch.bool, device=s.board.device)
+    when that is set (greedy after).
+
+    With a ``mesh``, ``batch`` is global and this rank plays and returns its
+    rows on ``mesh.device``.  The root noise and the sampling noise are
+    drawn at the global shape from ``gen`` (seeded alike on every rank) and
+    each rank keeps its rows, so the sharded games are the unsharded run's,
+    game for game."""
+    rows = batch if mesh is None else mesh_lib.shard_size(batch, mesh)
+    s = st.new_game_batch(rows, device=device if mesh is None else mesh.device)
+    dev = s.board.device
+    done = torch.zeros(rows, dtype=torch.bool, device=dev)
     states, dists, live = [], [], []
     for i in range(n_moves):
-        trees = mcts.init_trees(s, ev, params, cfg, gen=gen)
+        noise = None
+        if cfg.noise_weight > 0:
+            noise = mesh_lib.draw_rows(lambda n: mcts.dirichlet_noise(gen, n, cfg.dirichlet_alpha, dev), batch, mesh)
+        trees = mcts.init_trees(s, ev, params, cfg, noise=noise)
         trees = mcts.run_search(trees, ev, params, cfg, n_rollouts, gen=gen)
         visits = take_rows(trees.pstats, trees.root)[:, C_N, :NN]
         dist = visits / visits.sum(1, keepdim=True).clamp(min=1.0)
         if temperature > 0 and (temp_moves is None or i < temp_moves):
-            actions = _sample_by_visits(gen, visits, temperature)
+            actions = _sample_by_visits(mesh_lib.draw_rows(lambda n: gumbel(gen, n, dev), batch, mesh), visits, temperature)
         else:
             actions = mcts.choose_action(trees)
         actions = torch.where(done, PASS_ACTION, actions)
@@ -89,10 +116,14 @@ def selfplay_with_targets(
     return AZTrajectory(states=stacked, dists=torch.stack(dists), live=torch.stack(live), final=s)
 
 
-def az_losses(policy: PolicyNet, value: ValueNet, traj: AZTrajectory) -> tuple[torch.Tensor, torch.Tensor]:
+def az_losses(
+    policy: PolicyNet, value: ValueNet, traj: AZTrajectory, mesh: mesh_lib.Mesh | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """(policy cross-entropy against the visit distributions, value MSE
     against the outcomes), masked to live moves.  The value targets the
-    side to move: ``z_t = outcome * (-1)^t``."""
+    side to move: ``z_t = outcome * (-1)^t``.  With a ``mesh``, ``traj`` is
+    this rank's rows and the losses are its shares of the global means
+    (divided by the live moves of every rank)."""
     T, B = traj.live.shape
     flat = traj.states.map(lambda x: x.reshape((T * B,) + x.shape[2:]))
     fts = features_batch(flat)
@@ -101,7 +132,10 @@ def az_losses(policy: PolicyNet, value: ValueNet, traj: AZTrajectory) -> tuple[t
 
     ce = -(traj.dists * logp).sum(-1)  # (T, B)
     mask = traj.live.float()
-    n = mask.sum().clamp(min=1.0)
+    n = mask.sum()
+    if mesh is not None:
+        mesh_lib.psum(n, mesh)
+    n = n.clamp(min=1.0)
     policy_loss = (ce * mask).sum() / n
 
     outcome = torch.where(rules.score(traj.final) > 0, 1.0, -1.0)  # (B,)
@@ -126,17 +160,25 @@ def make_state(policy: PolicyNet, value: ValueNet, lr: float) -> AZState:
     return AZState(policy.eval(), value.eval(), adamw(policy), adamw(value))
 
 
-def az_step(state: AZState, traj: AZTrajectory) -> tuple[torch.Tensor, torch.Tensor]:
+def az_step(
+    state: AZState, traj: AZTrajectory, mesh: mesh_lib.Mesh | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """One AdamW update of each net on its own loss (in place); returns the
     two losses, detached.  The policy loss does not depend on the value net
-    nor the value loss on the policy, so one forward of each serves both."""
+    nor the value loss on the policy, so one forward of each serves both.
+    With a ``mesh``, the ranks' loss shares and gradients are summed before
+    the updates, which every rank then takes alike (module docstring)."""
     state.policy_opt.zero_grad(set_to_none=True)
     state.value_opt.zero_grad(set_to_none=True)
-    pl, vl = az_losses(state.policy, state.value, traj)
+    pl, vl = az_losses(state.policy, state.value, traj, mesh)
     (pl + vl).backward()
+    pl, vl = pl.detach(), vl.detach()
+    if mesh is not None:
+        nets = (state.policy, state.value)
+        mesh_lib.psum([pl, vl, *(p.grad for net in nets for p in net.parameters())], mesh)
     state.policy_opt.step()
     state.value_opt.step()
-    return pl.detach(), vl.detach()
+    return pl, vl
 
 
 def default_config(n_moves: int) -> SearchConfig:

@@ -7,7 +7,7 @@ files in the reference's own layout, ``{"model_state_dict",
 ``nets.load_value`` read.  Every write is atomic: a temporary file in the
 target's directory, then ``os.replace``, so a crash leaves the old file or
 the new one, never a torn one.  The pool keeps the ``policy_<n>`` numbering
-as ``policy_<n>.pt`` files.
+as ``policy_<n>.pt`` files, each marked with its ``pool_generation``.
 
 Orbax directories cannot be read without jax: the loaders raise on them and
 name the export route (``tools/export_policy_torch.py``) instead of skipping
@@ -23,7 +23,10 @@ import tempfile
 import numpy as np
 import torch
 
-_EXPORT = "export it to a torch .pt file with tools/export_policy_torch.py (needs jax)"
+_EXPORT = (
+    "export it to a torch .pt file with tools/export_policy_torch.py "
+    "(--kind policy or --kind value; needs jax)"
+)
 
 
 def atomic_save(obj, path: str) -> None:
@@ -63,7 +66,12 @@ _POOL_RE = re.compile(r"policy_(\d+)(\.pt)?$")
 
 
 def pool_ids(weights_dir: str) -> list[int]:
-    """Sorted generation numbers present in the pool."""
+    """Sorted generation numbers present in the pool.  A ``policy_<n>.pt``
+    counts only when :func:`save_next_policy` wrote it (its
+    ``pool_generation`` is ``n``), so an exported or shipped net that
+    happens to bear such a name (``data/weights/policy_17.pt``) is never
+    taken for a generation; the JAX package's pool likewise counts only its
+    own ``policy_<n>`` directories."""
     if not os.path.isdir(weights_dir):
         return []
     out = []
@@ -71,11 +79,16 @@ def pool_ids(weights_dir: str) -> list[int]:
         m = _POOL_RE.match(name)
         if not m:
             continue
+        path = os.path.join(weights_dir, name)
         if m.group(2) is None:
-            if os.path.isdir(os.path.join(weights_dir, name)):
-                raise ValueError(f"{os.path.join(weights_dir, name)} is an orbax pool member; {_EXPORT}")
+            if os.path.isdir(path):
+                raise ValueError(f"{path} is an orbax pool member; {_EXPORT}")
             continue
-        out.append(int(m.group(1)))
+        n = int(m.group(1))
+        if os.path.isfile(path) and torch.load(path, map_location="cpu", mmap=True, weights_only=True).get(
+            "pool_generation"
+        ) == n:
+            out.append(n)
     return sorted(out)
 
 
@@ -91,11 +104,29 @@ def latest_policy(weights_dir: str) -> tuple[int, dict] | None:
     return n, load_checkpoint(pool_path(weights_dir, n))
 
 
-def save_next_policy(weights_dir: str, net: torch.nn.Module, optimizer=None) -> int:
-    """Append the next generation to the pool; returns its number."""
+def next_generation(weights_dir: str, count: int = 1) -> int:
+    """The number of the pool's next generation, once the files of the next
+    ``count`` generations are found free.  A ``policy_<n>.pt`` there that is
+    not a generation (a shipped or exported net such as
+    ``data/weights/policy_17.pt``, or a pool written without
+    ``pool_generation``) raises: the pool never writes over it."""
     ids = pool_ids(weights_dir)
     n = (ids[-1] + 1) if ids else 0
-    save_variables(pool_path(weights_dir, n), net, optimizer)
+    for m in range(n, n + count):
+        path = pool_path(weights_dir, m)
+        if os.path.lexists(path):
+            raise FileExistsError(
+                f"{path} is not generation {m} of the pool in {weights_dir} (it holds no pool_generation {m}), "
+                "and the pool does not write over it: move it away or grow the pool in another directory"
+            )
+    return n
+
+
+def save_next_policy(weights_dir: str, net: torch.nn.Module, optimizer=None) -> int:
+    """Append the next generation to the pool (:func:`next_generation`);
+    returns its number."""
+    n = next_generation(weights_dir)
+    save_variables(pool_path(weights_dir, n), net, optimizer, {"pool_generation": n})
     return n
 
 

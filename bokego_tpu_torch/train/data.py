@@ -89,14 +89,16 @@ class GoDataset:
         return self.features.shape[0]
 
     def batches(
-        self, batch_size: int, rng: np.random.Generator, augment: bool = True, device=None
+        self, batch_size: int, rng: np.random.Generator, augment: bool = True, device=None, rows: slice | None = None
     ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         """Shuffled epoch of minibatches with random D4 augmentation (numpy:
-        ``device`` is accepted for the packed datasets' interface)."""
+        ``device`` is accepted for the packed datasets' interface).  With
+        ``rows``, only those rows of each minibatch (a data-parallel rank's),
+        drawn from ``rng`` as the whole minibatch is."""
         del device
         idx = rng.permutation(len(self))
         for i in range(0, len(self) - batch_size + 1, batch_size):
-            sel = idx[i : i + batch_size]
+            sel = idx[i : i + batch_size][rows or slice(None)]
             f, t = self.features[sel], self.targets[sel]
             if augment:
                 k = int(rng.integers(8))
@@ -258,13 +260,15 @@ class PackedDataset:
         return features_batch(_states(boards, ko, self.turn[sel], last, device)), targets
 
     def batches(
-        self, batch_size: int, rng: np.random.Generator, augment: bool = True, device=None
+        self, batch_size: int, rng: np.random.Generator, augment: bool = True, device=None, rows: slice | None = None
     ) -> Iterator[tuple[torch.Tensor, np.ndarray]]:
-        """Shuffled epoch of (features on ``device``, numpy targets)."""
+        """Shuffled epoch of (features on ``device``, numpy targets); with
+        ``rows``, only those rows of each minibatch are featurised and
+        returned (a data-parallel rank's share)."""
         dev = resolve_device(device)
         idx = rng.permutation(len(self))
         for i in range(0, len(self) - batch_size + 1, batch_size):
-            sel = idx[i : i + batch_size]
+            sel = idx[i : i + batch_size][rows or slice(None)]
             k = int(rng.integers(8)) if augment else 0
             yield self._featurize(sel, k, dev)
 
@@ -353,7 +357,7 @@ class ShardedDataset:
         return sum(self._lengths)
 
     def batches(
-        self, batch_size: int, rng: np.random.Generator, augment: bool = True, device=None
+        self, batch_size: int, rng: np.random.Generator, augment: bool = True, device=None, rows: slice | None = None
     ) -> Iterator[tuple[torch.Tensor, np.ndarray]]:
         order = [self.paths[int(si)] for si in rng.permutation(len(self.paths))]
         with ThreadPoolExecutor(max_workers=1) as pool:
@@ -362,7 +366,7 @@ class ShardedDataset:
                 shard = nxt.result()
                 if i + 1 < len(order):
                     nxt = pool.submit(load_shard, order[i + 1])
-                yield from shard.batches(batch_size, rng, augment, device)
+                yield from shard.batches(batch_size, rng, augment, device, rows)
 
 
 def load_streaming(path: str):

@@ -25,6 +25,7 @@ from bokego_tpu_torch.coords import NN
 from bokego_tpu_torch.env import state as st
 from bokego_tpu_torch.features import features_batch
 from bokego_tpu_torch.models.nets import PolicyNet
+from bokego_tpu_torch.parallel import mesh as mesh_lib
 from bokego_tpu_torch.search import playout as po
 from bokego_tpu_torch.train.gendata import probs_fn
 
@@ -67,14 +68,23 @@ def make_optimizer(net: PolicyNet, lr: float) -> torch.optim.Optimizer:
     return torch.optim.AdamW(net.parameters(), lr=lr, weight_decay=1e-4, eps=1e-8)
 
 
-def update(net: PolicyNet, optimizer, traj: po.Trajectory, rewards: torch.Tensor, train_parity: int) -> torch.Tensor:
-    """One AdamW step on one colour batch; returns the loss, detached."""
+def update(
+    net: PolicyNet, optimizer, traj: po.Trajectory, rewards: torch.Tensor, train_parity: int,
+    mesh: mesh_lib.Mesh | None = None,
+) -> torch.Tensor:
+    """One AdamW step on one colour batch; returns the loss, detached.  With
+    a ``mesh`` (the JAX package's dp step) ``traj`` is this rank's own games
+    and the loss and gradients are averaged over the ranks (``pmean``)
+    before the step, which every rank then takes alike."""
     net.eval()
     optimizer.zero_grad(set_to_none=True)
     loss = reinforce_loss(net, traj, rewards, train_parity)
     loss.backward()
+    loss = loss.detach()
+    if mesh is not None:
+        mesh_lib.pmean([loss, *(p.grad for p in net.parameters())], mesh)
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 @dataclasses.dataclass

@@ -7,6 +7,14 @@ The optimizer is the JAX package's: ``optax.adam(lr)`` without weight decay
 and ``optax.adamw(lr, weight_decay=wd)`` with it, both ``eps=1e-8``; the
 decay applies to every parameter (one group), BatchNorm scales and biases
 included.  Torch's own ``AdamW`` default decay (1e-2) is never used.
+
+Data parallel (``n_devices > 1``, the JAX package's ``shard_map`` step):
+one process per rank (``parallel.mesh.spawn``), each with its rows of every
+global batch.  BatchNorm normalises each shard by its own batch statistics;
+then the gradients, the loss and the updated running statistics are
+averaged over the ranks (``pmean``) and Adam steps alike on every rank.
+That is neither ``SyncBatchNorm`` (global statistics) nor DDP's default
+(``broadcast_buffers`` copies rank 0's running statistics).
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from bokego_tpu_torch.models.nets import PolicyNet, ValueNet
+from bokego_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -66,13 +75,26 @@ def _on(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dev, dtype)
 
 
-def train_step(net, optimizer, loss_fn, fts: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """One SGD step on one batch; returns the loss, detached, on the device."""
+def running_stats(net: torch.nn.Module) -> list[torch.Tensor]:
+    """The BatchNorm running means and variances of ``net``."""
+    return [b for name, b in net.named_buffers() if name.endswith(("running_mean", "running_var"))]
+
+
+def train_step(
+    net, optimizer, loss_fn, fts: torch.Tensor, targets: torch.Tensor, mesh: mesh_lib.Mesh | None = None
+) -> torch.Tensor:
+    """One SGD step on one batch; returns the loss, detached, on the device.
+    With a ``mesh``, ``fts`` and ``targets`` are this rank's rows and the
+    loss, the gradients and the running statistics are averaged over the
+    ranks before the step (module docstring)."""
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn(net, fts, targets)
     loss.backward()
+    loss = loss.detach()
+    if mesh is not None:
+        mesh_lib.pmean([loss, *running_stats(net), *(p.grad for p in net.parameters())], mesh)
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 def train(
@@ -94,15 +116,32 @@ def train(
 ) -> TrainState:
     """The epoch loop: loss logs every ``log_every`` steps, a stats file
     appended per epoch, timing per epoch.  ``net`` trains in place on its own
-    device and is left in ``eval()`` mode."""
-    if n_devices > 1:
-        raise NotImplementedError("data-parallel SL is ROADMAP §1 item 13; train on one device")
+    device and is left in ``eval()`` mode.
+
+    With ``n_devices = k > 1`` this runs in each of k ranks' processes
+    (``parallel.mesh.spawn``; without a process group of k it raises): the
+    net and the optimizer state are broadcast from rank 0, every rank draws
+    the same global batches from ``seed`` and featurises only its rows of
+    each (``batch_size`` is the global batch; the dataset's ``batches`` takes
+    ``rows=``) and takes the data-parallel step; only rank 0 logs and writes
+    the stats file."""
     dev = next(net.parameters()).device
+    mesh = mesh_lib.get_mesh(n_devices, device=dev) if n_devices > 1 else None
+    shard = {}
+    if mesh is not None:
+        shard = {"rows": mesh_lib.shard_slice(batch_size, mesh)}
+        if mesh.rank != 0:
+            log_fn, stats_path = (lambda _: None), None
     loss_fn = value_loss if kind == "value" else policy_loss
     target_dtype = torch.float32 if kind == "value" else torch.int64
     optimizer = make_optimizer(net, lr, weight_decay)
     if opt_state is not None:
         load_optimizer_state(optimizer, opt_state)
+    if mesh is not None:
+        # one replicated starting point, as the JAX step's replicated params
+        # and optimizer state: averaged gradients keep ranks together, they
+        # do not bring them together
+        mesh_lib.replicate([net, list(optimizer.state.values())], mesh)
 
     rng = np.random.default_rng(seed)
     logged: list[float] = []
@@ -116,9 +155,9 @@ def train(
         # the running loss stays on the device between logs: a read per
         # step would synchronise every step
         running = torch.zeros((), device=dev)
-        for fts, targets in dataset.batches(batch_size, rng, device=dev):
+        for fts, targets in dataset.batches(batch_size, rng, device=dev, **shard):
             fts, targets = _on(fts, dev, torch.float32), _on(targets, dev, target_dtype)
-            running = running + train_step(net, optimizer, loss_fn, fts, targets)
+            running = running + train_step(net, optimizer, loss_fn, fts, targets, mesh)
             count += 1
             if count % log_every == 0:
                 r = float(running)

@@ -66,10 +66,32 @@ Phases (any failure exits non-zero; nothing is caught):
 20. every training entry point (``python -m bokego_tpu_torch.bin.<name>``)
     as a process on the GPU at a small size, ``alphazero --resume`` too.
 
-The last three lines of standard output are the training phases' figures,
-the kernels' JSON record (K1 and K2 once at the self-play path's shapes and
-once at the serving path's) and the device line ``{"ok": true, "device":
-{...}}``; the line before them is ``nvidia-smi``'s name and power limit.
+21. data parallelism over NCCL at world 1 on ``cuda:0`` (a process group of
+    this process alone): ``selfplay_sharded`` at the bench configuration and
+    B=1024 for DP_MOVES moves with the main path's nets, timed beside the
+    unsharded ``selfplay``, 51 K1 launches a move (counts read around each
+    run), then with the deterministic evaluator equal to ``selfplay`` move
+    for move;
+22. the dp SL step (policy and value, B=256, cuDNN deterministic) at world 1
+    equal to ``train_step`` bit for bit;
+23. gloo, two spawned ranks sharing ``cuda:0``: sharded self-play of 2 x 256
+    games equal to unsharded B=512 game for game (deterministic evaluator,
+    bench configuration), 51 K1 launches a move on rank 0 (counts read
+    around its sharded run: the ``selfplay_sharded`` path), and one dp SL
+    step of each net on the card within phase 15's bounds of the same
+    2-rank step on the CPU; then, on rank 0 alone, K1 and K2 against their
+    plain versions at the rank's shapes (B=256, Nmax=512, levels=6), timed;
+24. the dry run ``python -m bokego_tpu_torch.parallel.dryrun 1`` as a
+    process: exit 0 and its three ``dryrun:`` lines;
+25. phase 23 over NCCL on two cards where the machine has two; otherwise one
+    line saying it was not run.
+
+The last four lines of standard output are the training phases' figures,
+the data-parallel phases' figures, the kernels' JSON record (K1 and K2 once
+at the self-play path's shapes, once at the serving path's, and once at
+the ``selfplay_sharded`` path's per-rank shapes with rank 0's launches of
+phase 23) and the device line ``{"ok": true, "device": {...}}``; the line
+before them is ``nvidia-smi``'s name and power limit.
 """
 
 from __future__ import annotations
@@ -98,6 +120,8 @@ FUSED = 8  # rollouts per launch in the K1 check: the main path's eval_every
 GEN_BATCH = 512  # games of the gendata phase and positions of the genvals batch
 SL_BATCH, SL_STEPS = 256, 200  # SL phase: steps at this batch, policy and value
 AZ_BATCH, AZ_MOVES, AZ_ROLLOUTS = 64, 80, 64  # the AlphaZero iteration (bin defaults but the batch)
+DP_MOVES = 4  # self-play moves of each data-parallel self-play run
+DP_BATCH = 512  # global games of the 2-rank runs (2 x 256)
 
 
 def log(msg: str) -> None:
@@ -211,24 +235,35 @@ def reverse_pools(trees):
 def check_serving_kernels(dev, params, roots) -> dict:
     """Phase 7; returns the K1 and K2 records at the --fast engine's shapes
     (B=SERVE_FOREST, Nmax=512, levels=8)."""
+    from bokego_tpu_torch.search import mcts
+
+    shapes = ((1, 512, 200, False), (SERVE_FOREST, 512, 200, False), (2, 65536, 64, True), (34, 65536, 64, True))
+    return check_kernels_at(dev, mcts.net_evaluator(), params, roots, shapes, levels=8, record_at=(SERVE_FOREST, 512))
+
+
+def check_kernels_at(dev, ev, params, roots, shapes, levels: int, record_at: tuple[int, int]) -> dict:
+    """K1 (1, 7 and FUSED rollouts a launch) and K2 (three masks) against
+    their plain versions on trees warmed by ``ev`` from the first ``B`` of
+    ``roots``, for each ``(B, Nmax, warm rollouts, pools reversed)`` of
+    ``shapes``; returns their records (times, bounds, error) at the
+    ``record_at`` ``(B, Nmax)``."""
     from bokego_tpu_torch.config import SearchConfig
     from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts
 
-    ev = mcts.net_evaluator()
     gen = torch.Generator(device=dev).manual_seed(2)
     records = {}
-    for batch, n_pool, warm_rollouts, flip in ((1, 512, 200, False), (SERVE_FOREST, 512, 200, False), (2, 65536, 64, True), (34, 65536, 64, True)):
+    for batch, n_pool, warm_rollouts, flip in shapes:
         cfg = SearchConfig(
-            use_kernel=True, eval_every=2, expand_thresh=0, branch_num=8, max_nodes=n_pool, kernel_levels=8
+            use_kernel=True, eval_every=2, expand_thresh=0, branch_num=8, max_nodes=n_pool, kernel_levels=levels
         )
         states = roots.map(lambda x: x[:batch].clone())
         trees = mcts.run_search(mcts.init_trees(states, ev, params, cfg), ev, params, cfg, warm_rollouts)
         if flip:
             trees = reverse_pools(trees)
             check(bool((trees.root == n_pool - 1).all()), "reversed pools: roots not in the last row")
-        kw = dict(c=cfg.exploration_weight, w=1.0, use_value=True, levels=8)
-        shape = f"B={batch} Nmax={n_pool} levels=8"
+        kw = dict(c=cfg.exploration_weight, w=1.0, use_value=True, levels=levels)
+        shape = f"B={batch} Nmax={n_pool} levels={levels}"
         err = 0.0
         for n_roll in (1, 7, FUSED):
             p_k, p_p = trees.pstats.clone(), trees.pstats.clone()
@@ -269,8 +304,8 @@ def check_serving_kernels(dev, params, roots) -> dict:
             f"K1/K2 at {shape}{' (pools reversed)' if flip else ''}: 1, 7 and {FUSED} fused rollouts and three "
             f"masks equal the plain versions bit for bit (tolerance 0); last depths {depth.tolist()[:8]}"
         )
-        if (batch, n_pool) == (SERVE_FOREST, 512):
-            # times and bounds at the --fast engine's shapes
+        if (batch, n_pool) == record_at:
+            # times and bounds at the recorded shapes
             singles_p, singles_rs = trees.pstats.clone(), trees.root_stats.clone()
             singles = [
                 rollout.descend_backprop(singles_p, trees.value, trees.root, singles_rs, **kw) for _ in range(FUSED)
@@ -283,7 +318,7 @@ def check_serving_kernels(dev, params, roots) -> dict:
             plain, _ = time_ms(
                 lambda: rollout.descend_backprop_plain(p_p, trees.value, trees.root, rs_p, rollouts=FUSED, **kw), 5
             )
-            n_bytes, n_ops = k1_work(singles, trees.parent, 8, planes=4)
+            n_bytes, n_ops = k1_work(singles, trees.parent, levels, planes=4)
             b_ms, b_by = bound_ms(n_bytes, n_ops)
             mean_depth = float(rollout.unpack(singles[0]).depth.float().mean())
             records["descend_backprop"] = dict(
@@ -772,13 +807,7 @@ def serving_phases(dev, roots):
 def _sl_step_gpu_vs_cpu(dev, kind: str, net, fts, targets) -> dict:
     """Phase 15: one SL step (train-mode BatchNorm, Adam) of the same net on
     the same batch on the GPU and on the CPU: the loss, every gradient and
-    the updated running statistics.  cuDNN and the CPU sum in different
-    orders, so the loss is held to rtol 1e-4, the statistics to rtol 1e-4 +
-    atol 1e-5, and each gradient tensor to a relative error (Frobenius) of
-    1e-2: a ReLU whose input lies within rounding of 0 passes or blocks its
-    gradient depending on that order.  The biases that feed a BatchNorm have
-    a gradient of 0 in real arithmetic; theirs are held to 1e-4 of the
-    largest gradient norm instead."""
+    the updated running statistics, held by :func:`_same_sl_step`."""
     from bokego_tpu_torch.train import sl
 
     loss_fn = sl.value_loss if kind == "value" else sl.policy_loss
@@ -787,23 +816,44 @@ def _sl_step_gpu_vs_cpu(dev, kind: str, net, fts, targets) -> dict:
         n = copy.deepcopy(net).to(d).train()
         opt = sl.make_optimizer(n, 1e-3)
         loss = sl.train_step(n, opt, loss_fn, fts.to(d), targets.to(d))
-        out.append((float(loss), {k: p.grad.cpu() for k, p in n.named_parameters()},
-                    {k: v.cpu() for k, v in n.state_dict().items() if "running" in k}))
-    (lg, gg, sg), (lc, gc, sc) = out
-    check(abs(lg - lc) <= 1e-4 * abs(lc), f"SL {kind} step loss GPU {lg} vs CPU {lc}")
+        out.append(_sl_result(loss, n))
+    return _same_sl_step(kind, *out, what="step")
+
+
+def _sl_result(loss, net) -> tuple:
+    """(loss, gradients, running statistics) of a net after an SL step, on the CPU."""
+    return (float(loss), {k: p.grad.cpu() for k, p in net.named_parameters()},
+            {k: v.cpu() for k, v in net.state_dict().items() if "running" in k})
+
+
+def _same_sl_step(kind: str, gpu: tuple, cpu: tuple, what: str) -> dict:
+    """A step's results on the GPU against the CPU.  cuDNN and the CPU sum in
+    different orders, so the loss is held to rtol 1e-4, the statistics to
+    rtol 1e-4 + atol 1e-5, and each gradient tensor to a relative error
+    (Frobenius) of 1e-2: a ReLU whose input lies within rounding of 0 passes
+    or blocks its gradient depending on that order.  The biases that feed a
+    BatchNorm have a gradient of 0 in real arithmetic; theirs are held to
+    1e-4 of the largest gradient norm instead."""
+    (lg, gg, sg), (lc, gc, sc) = gpu, cpu
+    check(abs(lg - lc) <= 1e-4 * abs(lc), f"SL {kind} {what} loss GPU {lg} vs CPU {lc}")
     bn_fed = {f"conv.{i}.bias" for i in range(0, 21, 3)} | {"lin1.bias"}
     scale = max(float(g.norm()) for g in gc.values())
     errs = {k: float((gg[k] - gc[k]).norm() / gc[k].norm().clamp(min=1e-30)) for k in gc if k not in bn_fed}
     noise = {k: float(gg[k].norm() + gc[k].norm()) / scale for k in gc if k in bn_fed}
     worst = max(errs, key=errs.get)
-    log(f"SL {kind} step: gradient relative errors GPU vs CPU, largest {worst} {errs[worst]:.3g}, median "
+    log(f"SL {kind} {what}: gradient relative errors GPU vs CPU, largest {worst} {errs[worst]:.3g}, median "
         f"{sorted(errs.values())[len(errs) // 2]:.3g}; BatchNorm-fed biases at most {max(noise.values()):.3g} of the scale")
-    check(errs[worst] <= 1e-2, f"SL {kind} step gradients GPU vs CPU: {worst} relative error {errs[worst]}")
-    check(max(noise.values()) <= 1e-4, f"SL {kind} step: BatchNorm-fed bias gradients {noise}")
+    check(errs[worst] <= 1e-2, f"SL {kind} {what} gradients GPU vs CPU: {worst} relative error {errs[worst]}")
+    check(max(noise.values()) <= 1e-4, f"SL {kind} {what}: BatchNorm-fed bias gradients {noise}")
     worst = errs[worst]
     for k in sc:
-        check(torch.allclose(sg[k], sc[k], rtol=1e-4, atol=1e-5), f"SL {kind} step {k} GPU vs CPU")
+        check(torch.allclose(sg[k], sc[k], rtol=1e-4, atol=1e-5), f"SL {kind} {what} {k} GPU vs CPU")
     return {"loss_gpu": lg, "loss_cpu": lc, "grad_rel_err": worst}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _timed(dev, fn):
@@ -969,6 +1019,222 @@ def train_clis(work: str) -> dict:
     with open(os.path.join(work, "cli_az_iter.txt")) as f:
         check(f.read() == "2", "alphazero --resume did not continue at iteration 2")
     return took
+
+
+def _sl_inputs(batch: int, seed: int):
+    """Features of seeded random positions with a legal move and a +-1
+    outcome per position, on the CPU: the dp SL steps' batch."""
+    from bokego_tpu_torch.env import rules
+    from bokego_tpu_torch.features import features_batch
+
+    roots = _random_roots(batch, 20, seed)
+    gen = torch.Generator().manual_seed(seed)
+    moves = torch.multinomial(rules.legal_mask(roots)[:, :81].float(), 1, generator=gen)[:, 0]
+    outcomes = torch.randint(0, 2, (batch,), generator=gen).float() * 2 - 1
+    return features_batch(roots), {"policy": moves, "value": outcomes}
+
+
+def _dp_sl_step(kind: str, state_dict, fts, targets, mesh) -> tuple:
+    """One SL step of ``kind`` from ``state_dict`` on ``mesh``'s device: this
+    rank's rows of the global batch, the dp step."""
+    from bokego_tpu_torch.models import nets
+    from bokego_tpu_torch.parallel import mesh as mesh_lib
+    from bokego_tpu_torch.train import sl
+
+    net = (nets.PolicyNet if kind == "policy" else nets.ValueNet)()
+    net.load_state_dict(state_dict)
+    net = net.to(mesh.device).train()
+    loss = sl.train_step(
+        net, sl.make_optimizer(net, 1e-3), sl.policy_loss if kind == "policy" else sl.value_loss,
+        mesh_lib.shard_rows(fts.to(mesh.device), mesh), mesh_lib.shard_rows(targets.to(mesh.device), mesh), mesh,
+    )
+    return _sl_result(loss, net)
+
+
+def _dp_rank(mesh, path: str) -> None:
+    """Phases 23 and 25, on one rank: sharded self-play of the job's games
+    with the deterministic evaluator at the bench configuration, then the dp
+    SL step of the policy and of the value net on ``mesh``'s card and on the
+    CPU (over gloo), and with the job's ``kernel_check`` rank 0's kernel
+    records at its shapes; rank 0 saves the results to ``path + ".out"``."""
+    import torch.distributed as dist
+
+    from bokego_tpu_torch.config import BENCH_CONFIG
+    from bokego_tpu_torch.device import fp32_only
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.parallel.selfplay import selfplay_sharded
+    from tests.torch_fake_eval import fake_evaluator
+
+    fp32_only()
+    job = torch.load(path, weights_only=True)
+    rollout.reset_launches()
+    _sync(mesh.device)
+    t0 = time.monotonic()
+    res = selfplay_sharded(mesh, None, fake_evaluator(), BENCH_CONFIG, job["batch"], job["moves"], BENCH_CONFIG.n_rollouts)
+    _sync(mesh.device)
+    out = {"selfplay": [res.actions.cpu(), res.scores.cpu(), *(t.cpu() for t in res.final.tensors())],
+           "selfplay_s": time.monotonic() - t0, "launches": dict(rollout.launches)}
+    cpu_group = mesh.group if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+    cpu_mesh = dataclasses.replace(mesh, device=torch.device("cpu"), group=cpu_group)
+    for kind in ("policy", "value"):
+        out[kind] = [_dp_sl_step(kind, job[f"{kind}_sd"], job["fts"], job[kind], m) for m in (mesh, cpu_mesh)]
+    dist.barrier(group=cpu_group)
+    if mesh.rank == 0:
+        if job["kernel_check"]:
+            # K1 and K2 against their plain versions at this rank's shapes
+            # (B/k games, the bench pool and levels): the sharded path's
+            # records, taken once the other rank has left the card
+            per = job["batch"] // mesh.size
+            roots = _random_roots(per, 20, seed=23).map(lambda x: x.to(mesh.device))
+            out["records"] = check_kernels_at(
+                mesh.device, fake_evaluator(), None, roots, ((per, BENCH_CONFIG.max_nodes, 200, False),),
+                levels=BENCH_CONFIG.kernel_levels, record_at=(per, BENCH_CONFIG.max_nodes),
+            )
+        torch.save(out, path + ".out")
+
+
+def _dp_pair(dev, backend: str | None, device, sl_inputs, state_dicts, want, kernel_check: bool = False) -> dict:
+    """Two ranks of :func:`_dp_rank` (``device``, ``backend`` as
+    ``mesh.spawn`` takes them): the sharded self-play equal to the
+    unsharded ``want`` game for game, 51 K1 launches a move on each rank,
+    and the dp SL step on the card within phase 15's bounds of the same
+    2-rank step on the CPU.  With ``kernel_check``, the figures hold rank
+    0's kernel records at its shapes (``records``)."""
+    from bokego_tpu_torch.parallel import mesh as mesh_lib
+
+    fts, targets = sl_inputs
+    name = f"{backend or 'nccl'} 2 ranks on {device or 'cuda:0 and cuda:1'}"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        path = os.path.join(tmp, "job.pt")
+        torch.save({"fts": fts, **targets, **{f"{k}_sd": v for k, v in state_dicts.items()}, "batch": DP_BATCH,
+                    "moves": DP_MOVES, "kernel_check": kernel_check}, path)
+        t0 = time.monotonic()
+        mesh_lib.spawn(_dp_rank, 2, path, device=device, backend=backend)
+        spawn_s = time.monotonic() - t0
+        out = torch.load(path + ".out", weights_only=True)
+    actions, scores, *final = out["selfplay"]
+    check(torch.equal(actions, want.actions.cpu()), f"{name}: sharded self-play actions differ from unsharded")
+    check(torch.equal(scores, want.scores.cpu()), f"{name}: sharded scores differ from unsharded")
+    for got, ref in zip(final, want.final.tensors()):
+        check(torch.equal(got, ref.cpu()), f"{name}: sharded final states differ from unsharded")
+    check(out["launches"]["descend_backprop"] == 51 * DP_MOVES, f"{name}: K1 launches on rank 0 {out['launches']}")
+    check(out["launches"]["write_rows"] > 0, f"{name}: K2 never launched on rank 0")
+    steps = {kind: _same_sl_step(kind, *out[kind], what=f"dp step, {name}") for kind in ("policy", "value")}
+    log(f"data parallel ({name}): self-play B=2x{DP_BATCH // 2} x {DP_MOVES} moves equals unsharded B={DP_BATCH} "
+        f"game for game ({1e3 * out['selfplay_s'] / DP_MOVES:.2f} ms/move on rank 0, launches {out['launches']}); "
+        f"dp SL step on the card within phase 15's bounds of the CPU's; spawn and run {spawn_s:.1f} s")
+    figures = dict(selfplay_ms_per_move_rank0=1e3 * out["selfplay_s"] / DP_MOVES, spawn_s=spawn_s, sl=steps,
+                   launches_rank0=out["launches"])
+    if kernel_check:
+        figures["records"] = out["records"]
+    return figures
+
+
+def dp_phases(dev, params) -> tuple[dict, dict, dict]:
+    """Phases 21-25 (data parallelism); returns the K1/K2 launch counts of
+    the sharded path (rank 0 of phase 23), its kernel records (at rank 0's
+    shapes) and the figures."""
+    import torch.distributed as dist
+
+    from bokego_tpu_torch.config import BENCH_BATCH as BATCH, BENCH_CONFIG as CFG
+    from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
+    from bokego_tpu_torch.models import nets
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.parallel import mesh as mesh_lib
+    from bokego_tpu_torch.parallel.selfplay import selfplay, selfplay_sharded
+    from bokego_tpu_torch.search import mcts
+    from bokego_tpu_torch.train import sl
+    from tests.torch_fake_eval import fake_evaluator
+
+    figures = {}
+    ev, fev = mcts.net_evaluator(), fake_evaluator()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}", world_size=1, rank=0)
+        try:
+            mesh = mesh_lib.get_mesh(1)
+            check(mesh.device == torch.device("cuda", 0) and dist.get_backend() == "nccl", f"mesh {mesh}")
+            # 21. the sharded main path at world 1: the real nets timed in
+            # turns with the unsharded loop (unsharded, sharded, sharded,
+            # unsharded), then the deterministic evaluator for equality
+            runs = {
+                "selfplay_sharded": lambda: selfplay_sharded(mesh, params, ev, CFG, BATCH, DP_MOVES, CFG.n_rollouts),
+                "selfplay": lambda: selfplay(params, ev, CFG, BATCH, DP_MOVES, CFG.n_rollouts, device=dev),
+            }
+            ms, results = {name: [] for name in runs}, {}
+            for name in ("selfplay", "selfplay_sharded", "selfplay_sharded", "selfplay"):
+                torch.cuda.synchronize()
+                rollout.reset_launches()
+                t0 = time.monotonic()
+                results[name] = runs[name]()
+                torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.monotonic() - t0) / DP_MOVES)
+                launched = dict(rollout.launches)
+                check(launched["descend_backprop"] == 51 * DP_MOVES, f"{name}: K1 launches {launched}")
+                check(launched["write_rows"] > 0, f"{name}: K2 never launched")
+                if name == "selfplay_sharded":
+                    counts = launched
+            same_real = float((results["selfplay_sharded"].actions == results["selfplay"].actions).float().mean())
+            got = selfplay_sharded(mesh, None, fev, CFG, BATCH, DP_MOVES, CFG.n_rollouts)
+            want = selfplay(None, fev, CFG, BATCH, DP_MOVES, CFG.n_rollouts, device=dev)
+            check(torch.equal(got.actions, want.actions) and torch.equal(got.scores, want.scores)
+                  and all(torch.equal(a, b) for a, b in zip(got.final.tensors(), want.final.tensors())),
+                  "NCCL world 1: sharded self-play differs from unsharded (deterministic evaluator)")
+            figures["nccl_world1"] = dict(
+                batch=BATCH, moves=DP_MOVES, ms_per_move_sharded=ms["selfplay_sharded"],
+                ms_per_move_unsharded=ms["selfplay"], launches=counts, real_net_actions_equal_share=same_real,
+            )
+            log(f"data parallel (NCCL, world 1, cuda:0): selfplay_sharded B={BATCH} x {DP_MOVES} moves at the bench "
+                f"config: ms/move {[round(x, 2) for x in ms['selfplay_sharded']]} (unsharded, before and after: "
+                f"{[round(x, 2) for x in ms['selfplay']]}); launches {counts} (51 K1 a move); real nets: {same_real:.4f} "
+                f"of the actions equal to unsharded; deterministic evaluator: equal move for move")
+            # 22. the dp SL step at world 1 is train_step, bit for bit
+            fts, targets = _sl_inputs(SL_BATCH, seed=21)
+            state_dicts = {"policy": nets.load_policy(POLICY_WEIGHTS, device="cpu").state_dict(),
+                           "value": nets.load_value(VALUE_WEIGHTS, device="cpu").state_dict()}
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                for kind in ("policy", "value"):
+                    dp = _dp_sl_step(kind, state_dicts[kind], fts, targets[kind], mesh)
+                    net = (nets.PolicyNet if kind == "policy" else nets.ValueNet)()
+                    net.load_state_dict(state_dicts[kind])
+                    net = net.to(dev).train()
+                    loss = sl.train_step(net, sl.make_optimizer(net, 1e-3),
+                                         sl.policy_loss if kind == "policy" else sl.value_loss,
+                                         fts.to(dev), targets[kind].to(dev))
+                    one = _sl_result(loss, net)
+                    check(dp[0] == one[0] and all(torch.equal(dp[i][k], one[i][k]) for i in (1, 2) for k in one[i]),
+                          f"dp SL {kind} step at world 1 differs from train_step")
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            log(f"data parallel (NCCL, world 1): the dp SL step (policy, value; B={SL_BATCH}) equals train_step bit for bit")
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 23. gloo, 2 ranks sharing cuda:0
+    want = selfplay(None, fev, CFG, DP_BATCH, DP_MOVES, CFG.n_rollouts, device=dev)
+    pair = _dp_pair(dev, "gloo", "cuda:0", (fts, targets), state_dicts, want, kernel_check=True)
+    records = pair.pop("records")
+    figures["gloo_2_ranks_cuda0"] = pair
+
+    # 24. the dry run as a process
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "bokego_tpu_torch.parallel.dryrun", "1"], capture_output=True,
+                          text=True, timeout=300, env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("dryrun:")]
+    check(proc.returncode == 0 and len(lines) == 3, f"dryrun 1 exited {proc.returncode}: {proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    figures["dryrun_s"] = time.monotonic() - t0
+    for line in lines:
+        log(f"  {line}")
+    log(f"dry run (python -m bokego_tpu_torch.parallel.dryrun 1): exit 0 in {figures['dryrun_s']:.1f} s")
+
+    # 25. NCCL over two cards, where the machine has them
+    if torch.cuda.device_count() >= 2:
+        figures["nccl_2_cards"] = _dp_pair(dev, None, None, (fts, targets), state_dicts, want)
+    else:
+        log(f"data parallel over NCCL on two cards: not run, this machine has {torch.cuda.device_count()} GPU")
+    return pair["launches_rank0"], records, figures
 
 
 def main() -> int:
@@ -1184,6 +1450,7 @@ def main() -> int:
     del roots
     torch.cuda.empty_cache()
     train_figures = training_phases(dev)
+    dp_counts, dp_records, dp_figures = dp_phases(dev, params)
 
     log(f"total: {time.monotonic() - t_start:.1f} s")
 
@@ -1202,11 +1469,13 @@ def main() -> int:
             replaces=replaces[name], path=path, launches=launches[name], **recs[name],
         )
         for path, launches, recs in (
-            ("selfplay", counts, records), ("gtp_engine_fast", serve_counts, records_serving)
+            ("selfplay", counts, records), ("gtp_engine_fast", serve_counts, records_serving),
+            ("selfplay_sharded", dp_counts, dp_records),
         )
         for name in ("descend_backprop", "write_rows")
     ]
     log(json.dumps({"training": train_figures}))
+    log(json.dumps({"data_parallel": dp_figures}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

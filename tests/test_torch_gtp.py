@@ -559,6 +559,21 @@ def test_cli_raises_without_gpu(flags, monkeypatch):
         cli.main(flags + ["--no-ponder"])
 
 
+def test_cli_serves_in_fp32(monkeypatch):
+    """``main`` turns TF32 off for cuDNN convolutions and matmuls before the
+    engine starts (torch's default lets cuDNN use TF32), so the GTP engine
+    serves the nets in the fp32 that every parity check assumes."""
+    from bokego_tpu_torch import cli
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    seen = []
+    monkeypatch.setattr(GTPEngine, "start", lambda self: seen.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, self.device.type)))
+    cli.main(["-r", "4", "--no-ponder", "--device", "cpu"])
+    assert seen == [(False, False, "cpu")]
+
+
 def test_cli_presets_on_a_cuda_device():
     """``--fast`` selects the kernels only on a CUDA device, and never with
     ``--simulate`` or ``--leaf-batch`` (the kernels are no_sim, K=1)."""

@@ -119,6 +119,50 @@ def test_policy_17_export_matches_jax():
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
+def test_repo_trained_exports_match_jax():
+    """The committed exports of the repo's own strongest pair,
+    ``data/weights/rl8_policy.pt`` (from the orbax ``rl_pool/policy_8``) and
+    ``data/weights/value_own.pt`` (from ``value_own``), load into the port
+    and give the JAX package's logits (the tolerance of the ``policy_17``
+    test above) and values (1e-5 absolute) on the orbax checkpoints."""
+    from bokego_tpu.train import checkpoints
+
+    weights = os.path.join(REPO, "data", "weights")
+    fts = _features(12)
+    policy = tnets.load_policy(os.path.join(weights, "rl8_policy.pt"), device="cpu")
+    pvars = checkpoints.load_variables(os.path.join(weights, "rl_pool", "policy_8"))
+    want = np.asarray(jinference.policy_logits(pvars, fts))
+    got = policy(torch.from_numpy(fts)).detach().numpy()
+    assert float(np.abs(want).max()) > 1.0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=ATOL)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+    value = tnets.load_value(os.path.join(weights, "value_own.pt"), device="cpu")
+    vvars = checkpoints.load_variables(os.path.join(weights, "value_own"))
+    want = np.asarray(jinference.value_fn(vvars, fts))
+    got = tinference.value_fn(value, torch.from_numpy(fts)).numpy()
+    assert float(np.abs(want).max()) > 0.05
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_exports_are_not_pool_members(tmp_path):
+    """No shipped or exported ``.pt`` under ``data/weights`` counts as an
+    opponent-pool generation, even under a ``policy_<n>.pt`` name; a file
+    that the pool wrote does."""
+    import shutil
+
+    from bokego_tpu_torch.train import checkpoints as tckpt
+
+    weights = os.path.join(REPO, "data", "weights")
+    exports = sorted(f for f in os.listdir(weights) if f.endswith(".pt"))
+    assert {"policy_17.pt", "rl8_policy.pt", "value_own.pt", "value_r2.pt"} <= set(exports)
+    for i, name in enumerate(exports):
+        shutil.copy(os.path.join(weights, name), tmp_path / f"policy_{i + 1}.pt")
+    assert tckpt.pool_ids(str(tmp_path)) == []
+    assert tckpt.save_next_policy(str(tmp_path), tnets.init_policy(8, seed=0, device="cpu")) == 0
+    assert tckpt.pool_ids(str(tmp_path)) == [0]
+
+
 def _jax_evaluator():
     """JAX evaluator over small-width nets (the package's net_evaluator
     applies the default 128-channel modules)."""

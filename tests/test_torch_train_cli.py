@@ -154,6 +154,73 @@ def test_selfplay_cli_grows_the_pool(tmp_path, cli):
     assert "Opponent pool size: 2" in out and "Saved policy_3" in out
 
 
+def test_default_pool_ignores_the_shipped_weights(tmp_path, cli):
+    """The ``bin/selfplay`` pool logic on a copy of ``data/weights``'s layout
+    (the shipped ``policy_17.pt`` and the other exports, orbax directories
+    beside them): no file there is a generation, so the run seeds
+    ``policy_0`` from a fresh init as the JAX CLI does and leaves the shipped
+    files alone."""
+    import shutil
+
+    src = os.path.join(REPO, "data", "weights")
+    weights = tmp_path / "data" / "weights"
+    os.makedirs(weights)
+    for name in os.listdir(src):
+        if os.path.isdir(os.path.join(src, name)):
+            os.makedirs(weights / name)  # an orbax directory's name only
+        else:
+            shutil.copy(os.path.join(src, name), weights / name)
+    assert "policy_17.pt" in os.listdir(weights) and checkpoints.pool_ids(str(weights)) == []
+    shipped = sorted(os.listdir(weights))
+    out = cli(["bokego_tpu_torch.bin.selfplay", "-e", "1", "-n", "1", "-b", "2", "--max-turns", "4"])
+    assert "Empty pool: seeding policy_0" in out and "Saved policy_1" in out
+    assert checkpoints.pool_ids(str(weights)) == [0, 1]
+    assert sorted(os.listdir(weights)) == sorted(shipped + ["policy_0.pt", "policy_1.pt"])
+    assert checkpoints.load_checkpoint(str(weights / "policy_17.pt")).keys() == {"model_state_dict"}
+
+
+def _digest(path) -> bytes:
+    import hashlib
+
+    return hashlib.sha256(open(path, "rb").read()).digest()
+
+
+def test_pool_never_writes_over_a_shipped_policy(tmp_path, cli):
+    """Generation 17 of a pool beside a copy of the shipped ``policy_17.pt``
+    raises and names the file, which stays as it was; ``bin/selfplay``
+    refuses before it plays a game when its epochs would reach it."""
+    import shutil
+
+    weights = str(tmp_path / "weights")
+    os.makedirs(weights)
+    shipped = os.path.join(weights, "policy_17.pt")
+    shutil.copy(os.path.join(REPO, "data", "weights", "policy_17.pt"), shipped)
+    before = _digest(shipped)
+    with pytest.raises(FileExistsError, match="policy_17.pt"):
+        cli(["bokego_tpu_torch.bin.selfplay", "-e", "17", "-n", "1", "-b", "2", "--max-turns", "4", "-w", weights])
+    assert os.listdir(weights) == ["policy_17.pt"]  # nothing seeded or played
+    net = nets.init_policy(8, seed=0, device="cpu")
+    assert [checkpoints.save_next_policy(weights, net) for _ in range(17)] == list(range(17))
+    with pytest.raises(FileExistsError, match="policy_17.pt is not generation 17"):
+        checkpoints.save_next_policy(weights, net)
+    assert checkpoints.pool_ids(weights) == list(range(17)) and _digest(shipped) == before
+    assert checkpoints.load_checkpoint(shipped).keys() == {"model_state_dict"}
+
+
+def test_pool_written_without_the_generation_key_is_kept(tmp_path):
+    """A pool whose files hold no ``pool_generation`` (the layout before the
+    key) counts no generation, and its files are never overwritten."""
+    pool = str(tmp_path / "pool")
+    for n in range(2):
+        checkpoints.save_variables(checkpoints.pool_path(pool, n), nets.init_policy(8, seed=n, device="cpu"))
+    before = [_digest(checkpoints.pool_path(pool, n)) for n in range(2)]
+    assert checkpoints.pool_ids(pool) == [] and checkpoints.latest_policy(pool) is None
+    with pytest.raises(FileExistsError, match="policy_0.pt is not generation 0"):
+        checkpoints.save_next_policy(pool, nets.init_policy(8, seed=5, device="cpu"))
+    assert [_digest(checkpoints.pool_path(pool, n)) for n in range(2)] == before
+    assert sorted(os.listdir(pool)) == ["policy_0.pt", "policy_1.pt"]
+
+
 def test_alphazero_cli_checkpoints_and_resumes(tmp_path):
     cwd = str(tmp_path)
     args = ["bokego_tpu_torch.bin.alphazero", "--iters", "1", "--batch", "2", "--moves", "3", "--rollouts", "4", "-o", "az"]

@@ -207,6 +207,24 @@ def test_selfplay_with_targets_samples_by_visits():
         assert not bool(moved[~traj.live[t]].any())  # done boards pass
 
 
+def test_sample_by_visits_follows_the_tempered_visits():
+    """The Gumbel maximum draws each visited point with probability
+    ``visits ** (1 / T)`` over their sum; a row without a visit passes."""
+    gen = torch.Generator().manual_seed(0)
+    visits = torch.zeros(2, 81)
+    points = [3, 10, 40]
+    visits[0, points] = torch.tensor([1.0, 3.0, 6.0])
+    n = 20000
+    rows = visits.repeat(n, 1)  # the visited row and the empty one in turns
+    for temperature in (1.0, 0.5):
+        actions = az._sample_by_visits(az.gumbel(gen, 2 * n, "cpu"), rows, temperature)
+        assert bool((actions[1::2] == az.PASS_ACTION).all())
+        freq = torch.bincount(actions[0::2], minlength=82).float() / n
+        want = visits[0, points] ** (1 / temperature)
+        assert float(freq[points].sum()) == 1.0
+        assert float((freq[points] - want / want.sum()).abs().max()) < 0.015  # > 4 standard errors
+
+
 def test_az_losses_and_step_match_jax(az_trajectories):
     jtraj, ttraj = az_trajectories
     pvars, vvars = _variables("policy", 1), _variables("value", 2)

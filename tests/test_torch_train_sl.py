@@ -227,6 +227,9 @@ def test_value_from_policy_copies_the_trunk():
 
 
 def test_multi_device_sl_raises():
+    """Data-parallel SL runs in one process per rank: without a process
+    group it raises and names the launcher (``tests/test_torch_parallel.py``
+    runs it)."""
     _, tds = _datasets("value", 10, B)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(RuntimeError, match="parallel.mesh.spawn"):
         sl.train(tds, nets.ValueNet(8), n_devices=2)
