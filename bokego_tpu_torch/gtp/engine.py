@@ -252,14 +252,18 @@ class GTPEngine:
         """Top-``k`` root children by pooled visits, on the device: visits
         summed across the forest, the mixed value from the pooled (N, W_sim,
         W_val), priors from tree 0.  Returns lists ``(actions, visits, mixed,
-        prior)``; children that exist in no tree pad with visits -1."""
+        prior)``; children that exist in no tree pad with visits -1.  Equal
+        visits keep the lower action first, as ``lax.top_k`` orders them: a
+        stable descending sort, cut to ``k`` (``torch.topk`` gives no tie
+        order, and ties are common in an analyze tick)."""
         rows = self._root_rows()
         has = rows[:, tr.C_CHILD, :NN] >= 0
         n = torch.where(has, rows[:, tr.C_N, :NN], 0.0).sum(0)
         wq = torch.where(has, rows[:, tr.C_WQ, :NN], 0.0).sum(0)
         wv = torch.where(has, rows[:, tr.C_WV, :NN], 0.0).sum(0)
         mixed = ((1.0 - self._w) * wq + self._w * wv) / n.clamp(min=1.0)
-        top_n, top_a = torch.topk(torch.where(has.any(0), n, -1.0), k)
+        top_n, top_a = torch.sort(torch.where(has.any(0), n, -1.0), descending=True, stable=True)
+        top_n, top_a = top_n[:k], top_a[:k]
         out = torch.stack([top_a.float(), top_n, mixed[top_a], rows[0, tr.C_PRIOR, :NN][top_a]])
         top_a, top_n, mixed, prior = out.tolist()
         return [int(a) for a in top_a], [int(x) for x in top_n], mixed, prior
@@ -359,7 +363,7 @@ class GTPEngine:
                 yield "\n"
                 break
             top_a, top_n, mixed, prior = self._analyze_stats(k)
-            # ascending visit order; topk pads with no-child slots at -1
+            # ascending visit order; the top k pad with no-child slots at -1
             best = [a for a, n in zip(top_a, top_n) if n >= 0][::-1]
             stats = dict(zip(top_a, zip(top_n, mixed, prior)))
             # the principal variations are walked on the device: only a

@@ -34,6 +34,10 @@ Phases (any failure exits non-zero; nothing is caught):
     and K2, launch counts read around the session): framing, every generated
     vertex legal on a ``NativeBoard`` referee, no rebuild where the played
     child was in the tree, ``analyze``, ``final_score``, SGF out and in;
+    every ``analyze`` tick lists the moves and visits of the top k children
+    in the order recomputed on the host from the root rows (pooled visits,
+    the lower action first among equal visits, as ``lax.top_k`` orders
+    them), at k=3 on a searched and on a fresh root and at k=81;
 10. the engine as a process: ``python -m bokego_tpu_torch.cli`` through
     ``GTPProcess`` for a few moves at ``-r 64``, then one move at ``-t 1``;
 11. leaf-parallel search without simulations, GPU against CPU, deterministic
@@ -113,6 +117,7 @@ FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 MOVES = 20  # self-play moves of the self-play path
 SERVE_ROLLOUTS = 400  # rollouts per generated move of the served sessions
 SERVE_FOREST = 8  # trees of the --fast session
+ANALYZE_TICKS = 4  # analyze ticks held against the host's order, per stream
 SIM_ROLLOUTS = 16  # rollouts per generated move of the --simulate session: every
 # rollout plays its leaf to the end of the game (up to 82 plies, each a policy
 # forward and a host read), about 1 s a rollout on an H100 (PERF.md)
@@ -417,11 +422,46 @@ def check_plain_search(dev) -> None:
     log("non-kernel search: GPU equals CPU at eval_every 1 and 2, before and after advance/compact/expand; compact leaves choices unchanged")
 
 
+def analyze_ticks(eng, stream, k: int, what: str) -> int:
+    """Phase 9's analyze check: ANALYZE_TICKS info lines of ``stream``, each
+    equal in moves and visits to the top ``k`` recomputed on the host from
+    the root rows copied to the CPU (visits pooled over the forest, a
+    stable order: the lower action first among equal visits), and
+    ``_analyze_stats(k)``'s actions equal to that order; then the stream
+    ends on input.  Returns how many ticks had a tie among the listed
+    children's visits (the order had to break it)."""
+    import numpy as np
+
+    from bokego_tpu_torch.coords import NN, unsquash
+    from bokego_tpu_torch.search import tree as tr
+
+    tied = 0
+    for tick in range(ANALYZE_TICKS):
+        line = next(stream)
+        check(re.match(r"info move [A-HJ][1-9] visits \d+ winrate \d+ prior \d+ pv [A-HJ][1-9]", line) is not None,
+              f"{what}: analyze line {line!r}")
+        rows = eng._root_rows().cpu().numpy()
+        has = rows[:, tr.C_CHILD, :NN] >= 0
+        x = np.where(has.any(0), np.where(has, rows[:, tr.C_N, :NN], 0.0).sum(0), -1.0)
+        order = np.argsort(-x, kind="stable")[:k]
+        best = [int(a) for a in order if x[a] >= 0][::-1]  # the stream's ascending visit order
+        shown = re.findall(r"info move (\S+) visits (\d+) ", line)
+        check(shown == [(unsquash(a), str(int(x[a]))) for a in best],
+              f"{what}: analyze tick {tick} shows {shown}, the host order is {[(unsquash(a), int(x[a])) for a in best]}")
+        top_a = eng._analyze_stats(k)[0]
+        check(top_a == order.tolist(), f"{what}: _analyze_stats({k}) gives {top_a}, the host order is {order.tolist()}")
+        tied += any(int((x == x[a]).sum()) > 1 for a in best)
+    eng._input[0] = "showboard"
+    check(next(stream) == "\n", f"{what}: analyze did not end on input")
+    eng._input[0] = None
+    return tied
+
+
 def serve_session(dev, params, fast: bool) -> dict:
     """Phase 9: one scripted GTP session in process; returns the launch counts."""
     from bokego_tpu_torch import cli, native
     from bokego_tpu_torch.config import EngineConfig
-    from bokego_tpu_torch.coords import squash
+    from bokego_tpu_torch.coords import NN, squash
     from bokego_tpu_torch.gtp.engine import GTPEngine
     from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts
@@ -536,13 +576,7 @@ def serve_session(dev, params, fast: bool) -> dict:
     ponder_note = f"{pondered} rollouts per tree in {ponder_s:.3f} s" + (", then the pool was full" if eng._pool_full() else "")
     stream = eng.send("analyze white 20")
     check(next(stream) == "= \n", f"{name}: analyze did not open its stream")
-    for _ in range(3):
-        line = next(stream)
-        check(re.match(r"info move [A-HJ][1-9] visits \d+ winrate \d+ prior \d+ pv [A-HJ][1-9]", line) is not None,
-              f"{name}: analyze line {line!r}")
-    eng._input[0] = "showboard"
-    check(next(stream) == "\n", f"{name}: analyze did not end on input")
-    eng._input[0] = None
+    tied = {"searched root, k=3": analyze_ticks(eng, stream, 3, name)}
     check("X" in ok("showboard") and "O" in ok("showboard"), f"{name}: showboard")
     check(re.fullmatch(r"[BW]\+\d+\.\d|0", ok("final_score")) is not None, f"{name}: final_score before the end")
     ok("play white pass", "")
@@ -560,8 +594,21 @@ def serve_session(dev, params, fast: bool) -> dict:
         text = ok(f"printsgf {path}")
         check(text.count(";") == len(history) + 1, f"{name}: printsgf wrote {text!r}")
         ok("clear_board", "")
+        # a fresh root (no child has a visit yet): the first ticks list
+        # children of few, often equal, visits; then every child at once
+        stream = eng.send("analyze black 20")
+        check(next(stream) == "= \n", f"{name}: analyze did not open its stream")
+        tied["fresh root, k=3"] = analyze_ticks(eng, stream, 3, name)
+        stream = eng.analyze(20, k=NN)
+        check(next(stream) == "= \n", f"{name}: analyze did not open its stream")
+        tied[f"k={NN}"] = analyze_ticks(eng, stream, NN, name)
         ok(f"loadsgf {path}", "white")
     check(eng._move_history == history and eng._turn() == len(history), f"{name}: loadsgf replayed {eng._move_history}")
+    log(
+        f"engine ({name}): analyze order held against the host's stable order in "
+        f"{ANALYZE_TICKS * len(tied)} ticks; ticks with tied visits among the listed children: "
+        + ", ".join(f"{w} {n} of {ANALYZE_TICKS}" for w, n in tied.items())
+    )
     per_gen = {k: sum(g[k] for g in gen_launches) / len(gen_launches) for k in gen_launches[0]}
     log(
         f"engine ({name}): genmove at -r {SERVE_ROLLOUTS} ms {[round(x, 1) for x in gen_ms]}; launches per genmove {per_gen}; "

@@ -1,7 +1,8 @@
 """The port's GTP engine: protocol conformance (the cases of
 ``tests/test_gtp.py`` that are about protocol and engine behaviour),
 scripted sessions answered letter for letter like the JAX engine (default,
-kernel, leaf-parallel and simulation-mode configurations), the CLI's flags
+kernel, leaf-parallel and simulation-mode configurations), the ``analyze``
+stream and its top-k stats equal to the JAX engine's, the CLI's flags
 against the JAX CLI's ``SearchConfig``, the deadline logic on a fake
 clock, and the host-side copies (``coords``, ``sgf``, ``EngineConfig``)
 held equal to the originals.
@@ -24,6 +25,7 @@ from bokego_tpu.gtp.engine import COMMANDS as JCOMMANDS, GTPEngine as JEngine
 from bokego_tpu_torch import coords as tcoords
 from bokego_tpu_torch import sgf as tsgf
 from bokego_tpu_torch.config import EngineConfig, SearchConfig
+from bokego_tpu_torch.coords import NN
 from bokego_tpu_torch.gtp import engine as tengine
 from bokego_tpu_torch.gtp.engine import COMMANDS, GTPEngine
 from bokego_tpu_torch.search import tree as tr
@@ -259,7 +261,8 @@ def test_analyze_stats_match_host():
     """The device-side top-k of the analyze stream against a host
     recomputation over the root rows: visits summed over the forest, the
     mixed value from pooled (N, Wq, Wv), priors from tree 0, children that
-    exist nowhere padded with -1."""
+    exist nowhere padded with -1, and the actions in the host's stable
+    order (equal visits: the lower action first)."""
     eng = make_engine(SearchConfig(expand_thresh=2, no_sim=True, max_nodes=256), n_rollouts=24, forest_size=3)
     eng.rollout(24)
     k = 5
@@ -270,8 +273,10 @@ def test_analyze_stats_match_host():
     wq = np.where(has, rows[:, tr.C_WQ, :81], 0.0).sum(0)
     wv = np.where(has, rows[:, tr.C_WV, :81], 0.0).sum(0)
     mixed_host = ((1 - eng._w) * wq + eng._w * wv) / np.maximum(n, 1.0)
-    order = np.argsort(np.where(has.any(0), n, -1.0))[::-1][:k]
-    assert sorted(top_n) == sorted(int(n[a]) if has.any(0)[a] else -1 for a in order)
+    x = np.where(has.any(0), n, -1.0)
+    order = np.argsort(-x, kind="stable")[:k]
+    assert top_a == order.tolist()
+    assert top_n == [int(v) for v in x[order]]
     for a, nn_, m, p in zip(top_a, top_n, mixed, prior):
         if nn_ < 0:
             continue
@@ -352,6 +357,21 @@ SESSION = [
 ]
 
 
+KERNEL_CFG = dict(use_kernel=True, eval_every=8, kernel_levels=8)
+
+
+def engine_pair(cfg, forest):
+    """The JAX engine and the port's on the deterministic evaluator, with
+    the same search config (``expand_thresh=2``, no simulations, 512 nodes
+    unless ``cfg`` says otherwise), 16 rollouts a move, no pondering."""
+    cfg = dict(dict(expand_thresh=2, no_sim=True, max_nodes=512), **cfg)
+    ecfg = dict(time_lim=None, n_rollouts=16, pondering=False, forest_size=forest)
+    jeng = JEngine(jax_fake_evaluator(), None, JSearchConfig(**cfg), JEngineConfig(**ecfg))
+    teng = GTPEngine(fake_evaluator(), None, SearchConfig(**cfg), EngineConfig(**ecfg), device="cpu")
+    jeng.running = teng.running = True
+    return jeng, teng
+
+
 @pytest.mark.parametrize(
     "kernel,forest", [(False, 1), (True, 2)], ids=["default", "kernel_forest2"]
 )
@@ -360,13 +380,7 @@ def test_session_matches_jax_engine(kernel, forest, tmp_path):
     configuration (non-kernel search, eval_every=1, one tree) and in the
     kernel configuration (the rollout kernels' CPU stand-ins on both sides:
     Pallas in interpret mode, the plain torch versions) with a forest of 2."""
-    cfg = dict(expand_thresh=2, no_sim=True, max_nodes=512)
-    if kernel:
-        cfg.update(use_kernel=True, eval_every=8, kernel_levels=8)
-    ecfg = dict(time_lim=None, n_rollouts=16, pondering=False, forest_size=forest)
-    jeng = JEngine(jax_fake_evaluator(), None, JSearchConfig(**cfg), JEngineConfig(**ecfg))
-    teng = GTPEngine(fake_evaluator(), None, SearchConfig(**cfg), EngineConfig(**ecfg), device="cpu")
-    jeng.running = teng.running = True
+    jeng, teng = engine_pair(KERNEL_CFG if kernel else {}, forest)
     for cmd in SESSION:
         jout = jeng.send(cmd.format(sgf=os.path.join(tmp_path, "j.sgf")))
         tout = teng.send(cmd.format(sgf=os.path.join(tmp_path, "t.sgf")))
@@ -374,6 +388,68 @@ def test_session_matches_jax_engine(kernel, forest, tmp_path):
     assert teng.running is False and tout is None
     assert teng._move_history == jeng._move_history
     assert teng.rebuilds < len(SESSION)  # generated moves re-rooted instead
+
+
+def _same_analyze_stats(jeng, teng, ks, what):
+    """``_analyze_stats(k)`` equal to ``JEngine._jit_analyze_stats``:
+    actions, visits, mixed values and priors, exactly and in order."""
+    for k in ks:
+        want = [np.asarray(x).tolist() for x in jeng._jit_analyze_stats(jeng.trees, k)]
+        assert list(teng._analyze_stats(k)) == want, (what, k)
+
+
+def test_analyze_stats_match_jax_engine():
+    """The analyze stream's top k against the JAX engine's on the same
+    session, with a forest of 2: on a fresh root, where every child has 0
+    visits; with k above the number of children (80 after a stone), so
+    that the -1 padding compares too; and after rollouts and re-rooting,
+    where many children tie at 1 or 2 visits."""
+    jeng, teng = engine_pair({}, forest=2)
+    ks = (1, 3, 8, NN)
+    for eng in (jeng, teng):
+        eng.send("clear_board")
+        eng._ensure_tree()
+    _same_analyze_stats(jeng, teng, ks, "empty board, fresh root")
+    assert set(teng._analyze_stats(NN)[1]) == {0}  # every child ties
+    for cmd in ("play black E5", "genmove white", "play black C3"):
+        assert teng.send(cmd) == jeng.send(cmd), cmd
+        _same_analyze_stats(jeng, teng, ks, cmd)
+    top_n = teng._analyze_stats(NN)[1]
+    assert top_n[-1] == -1 and len(set(top_n)) < len(top_n)  # padded, with ties
+    for eng in (jeng, teng):
+        eng._rebuild()
+    _same_analyze_stats(jeng, teng, ks, "rebuilt root")
+    assert set(teng._analyze_stats(NN)[1]) == {0, -1}  # every child ties, padded
+    for n in (8, 8, 16):
+        jeng.rollout(n)
+        teng.rollout(n)
+        _same_analyze_stats(jeng, teng, ks, f"after {n} more rollouts")
+
+
+@pytest.mark.parametrize(
+    "cfg,forest", [({}, 1), (KERNEL_CFG, 2), (dict(leaf_batch=4), 1)],
+    ids=["default", "kernel_forest2", "leaf_batch4"],
+)
+def test_analyze_stream_matches_jax_engine(cfg, forest):
+    """The ``analyze`` stream, letter for letter, after a few moves: each
+    engine's ``timed_rollout`` is replaced on the instance by a fixed
+    ``rollout(8)``, so that every tick grows both forests alike whatever
+    the clock.  Each tick lists the top 3 children in ascending visit
+    order; equal visits (common at 1 or 2 visits a child) must be ordered
+    as ``lax.top_k`` orders them."""
+    jeng, teng = engine_pair(cfg, forest)
+    for eng in (jeng, teng):
+        eng.timed_rollout = lambda seconds, eng=eng: eng.rollout(8)
+    for cmd in ("clear_board", "play black E5", "genmove white", "play black C3"):
+        assert teng.send(cmd) == jeng.send(cmd), cmd
+    jstream, tstream = jeng.send("analyze white 10"), teng.send("analyze white 10")
+    assert next(tstream) == next(jstream) == "= \n"
+    for tick in range(6):
+        tline = next(tstream)
+        assert tline.startswith("info move ")
+        assert tline == next(jstream), tick
+    jeng._input[0] = teng._input[0] = "showboard"
+    assert next(tstream) == next(jstream) == "\n"
 
 
 SHORT_SESSION = [
