@@ -491,11 +491,18 @@ class GTPEngine:
             return False, f"{NAME} only plays on 9x9 board"
         return True, ""
 
-    def _cmd_clear_board(self, args):
+    def new_game(self):
+        """``clear_board``: an empty board at the current komi, the move
+        history and the undo state dropped, and a fresh forest in place of
+        the last game's trees.  An engine that resigned plays again."""
         self.state = st.new_game(self._komi(), device=self.device)
         self._move_history = []
         self._last_state = None
         self._rebuild()
+        self.running = True
+
+    def _cmd_clear_board(self, args):
+        self.new_game()
         return True, ""
 
     def _cmd_komi(self, args):

@@ -90,12 +90,37 @@ Phases (any failure exits non-zero; nothing is caught):
 25. phase 23 over NCCL on two cards where the machine has two; otherwise one
     line saying it was not run.
 
-The last four lines of standard output are the training phases' figures,
-the data-parallel phases' figures, the kernels' JSON record (K1 and K2 once
-at the self-play path's shapes, once at the serving path's, and once at
-the ``selfplay_sharded`` path's per-rank shapes with rank 0's launches of
-phase 23) and the device line ``{"ok": true, "device": {...}}``; the line
-before them is ``nvidia-smi``'s name and power limit.
+26. M1, the policy curve (``bokego_tpu_torch.match.policy_curve``): the
+    repo's REINFORCE generations 8 and 0 (``rl8_policy.pt``,
+    ``rl0_policy.pt``) against ``policy_17.pt``, CURVE_GAMES raw-policy games
+    a colour each, 70 turns, resolved scoring; each winrate within CURVE_Z
+    two-sample standard errors of its TPU record, and gen 8 above gen 0;
+27. M2, the anchor match cut to ANCHOR_GAMES a colour at ANCHOR_ROLLOUTS
+    rollouts (``weights_match``: ``rl8_policy.pt`` + ``value_own.pt``
+    against ``policy_17.pt`` + ``value_r2.pt``, expand_thresh 16, max_nodes
+    2048, resolved): every game finished or at the move cap, finite scores;
+    the winrate is printed, not gated;
+28. M3, the fast-mode fidelity match cut to FIDELITY_GAMES a colour at
+    FIDELITY_ROLLOUTS rollouts (``config_match.play`` with
+    ``fastmode_fidelity``'s FAST against EXACT): the FAST side's K1 and K2
+    launches read around it (one K1 launch per rollout group, at most 8
+    rollouts a launch); then K1 and K2 at its shapes (B=8 and the record
+    run's B=64, Nmax=512, levels=6) against their plain versions;
+29. M4, the serving match (``serving_match.play_game``): MATCH_GAMES timed
+    games at MATCH_SECONDS a move, the CLI's default configuration against
+    ``--fast --forest 8``, a native referee: no forfeit, every game ended by
+    two passes, a resignation or the move cap, and the ``--fast`` side
+    launched K1.
+
+The last five lines of standard output are the training phases' figures,
+the data-parallel phases' figures, the matches' figures, the kernels' JSON
+record (K1 and K2 once at the self-play path's shapes, once at the serving
+path's, once at the ``selfplay_sharded`` path's per-rank shapes with rank
+0's launches of phase 23, once at the fidelity match's shapes with its
+FAST side's launches, and the serving match's launches beside the serving
+path's shapes, which its ``--fast --forest 8`` side shares) and the device
+line ``{"ok": true, "device": {...}}``; the line before them is
+``nvidia-smi``'s name and power limit.
 """
 
 from __future__ import annotations
@@ -127,6 +152,12 @@ SL_BATCH, SL_STEPS = 256, 200  # SL phase: steps at this batch, policy and value
 AZ_BATCH, AZ_MOVES, AZ_ROLLOUTS = 64, 80, 64  # the AlphaZero iteration (bin defaults but the batch)
 DP_MOVES = 4  # self-play moves of each data-parallel self-play run
 DP_BATCH = 512  # global games of the 2-rank runs (2 x 256)
+CURVE_GAMES = 256  # M1: raw-policy games a colour per generation, as the TPU record
+CURVE_RECORDS = {8: (359, 512), 0: (185, 512)}  # data/training_logs/policy_curve.txt (TPU)
+CURVE_Z = 3.29  # M1's gate: two-sample standard errors from the TPU record
+ANCHOR_GAMES, ANCHOR_ROLLOUTS = 4, 64  # M2: the anchor match cut to 4 games a colour at 64 rollouts
+FIDELITY_GAMES, FIDELITY_ROLLOUTS = 8, 64  # M3: the fidelity match cut to 8 games a colour at 64 rollouts
+MATCH_GAMES, MATCH_SECONDS, MATCH_OPENING = 2, 0.1, 6  # M4: timed serving games
 
 
 def log(msg: str) -> None:
@@ -1284,6 +1315,166 @@ def dp_phases(dev, params) -> tuple[dict, dict, dict]:
     return pair["launches_rank0"], records, figures
 
 
+def _gate_curve(gen_n: int, wins: int, total: int) -> float:
+    """M1's gate on one generation; returns its band."""
+    w_tpu, n_tpu = CURVE_RECORDS[gen_n]
+    p, p_tpu = wins / total, w_tpu / n_tpu
+    band = CURVE_Z * (p_tpu * (1.0 - p_tpu) * (1.0 / n_tpu + 1.0 / total)) ** 0.5
+    check(abs(p - p_tpu) <= band, f"policy curve gen {gen_n}: {p:.3f} outside {p_tpu:.3f} +- {band:.3f}")
+    return band
+
+
+def match_phases(dev) -> tuple[dict, dict, dict, dict]:
+    """Phases 26-29 (M1-M4), the match harness (``bokego_tpu_torch.match``);
+    returns the K1/K2 launch counts of the fidelity match and of the serving
+    match, the kernel records at the fidelity match's shapes (B=8) and the
+    figures."""
+    from bokego_tpu_torch import cli
+    from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS, SearchConfig
+    from bokego_tpu_torch.coords import PASS
+    from bokego_tpu_torch.env import rules
+    from bokego_tpu_torch.match import common, config_match, fastmode_fidelity, policy_curve, serving_match
+    from bokego_tpu_torch.match import weights_match
+    from bokego_tpu_torch.models import nets
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.search import mcts
+
+    weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "weights")
+    ev = mcts.net_evaluator(has_value=True)
+    figures = {}
+
+    # M1. the policy curve: generations 8 and 0 against policy_17, gated on the TPU record
+    opp = nets.load_policy(POLICY_WEIGHTS, device=dev)
+    rates = {}
+    for gen_n, name in ((8, "rl8_policy.pt"), (0, "rl0_policy.pt")):
+        mine = nets.load_policy(os.path.join(weights, name), device=dev)
+        _sync(dev)
+        t0 = time.monotonic()
+        sides = policy_curve.generation(mine, opp, CURVE_GAMES, seed=11 + gen_n, device=dev)
+        _sync(dev)
+        dt = time.monotonic() - t0
+        wins, total = policy_curve.wins_of(sides)
+        for side in sides:
+            check(bool(torch.isfinite(side.scores).all()), f"policy curve gen {gen_n}: non-finite scores")
+            check(not bool(side.final.invalid.any()), f"policy curve gen {gen_n}: an illegal move")
+            check(bool(rules.is_terminal(side.final, policy_curve.MAX_TURNS).all()), f"policy curve gen {gen_n}: unfinished")
+        band = _gate_curve(gen_n, wins, total)
+        rates[gen_n] = wins / total
+        w_tpu, n_tpu = CURVE_RECORDS[gen_n]
+        log(f"M1 {policy_curve.curve_line(gen_n, wins, total, dt)} | TPU record: gen {gen_n}: {w_tpu}/{n_tpu} = "
+            f"{w_tpu / n_tpu:.3f}; gate +- {band:.3f} met")
+        figures[f"curve_gen{gen_n}"] = dict(wins=wins, games=total, seconds=dt, band=band)
+    check(rates[8] > rates[0], f"policy curve: gen 8 ({rates[8]:.3f}) does not beat gen 0 ({rates[0]:.3f})")
+    del opp, mine, sides
+
+    # M2. the anchor match, reduced: rl8 + value_own against policy_17 + value_r2
+    pa = common.load_params(os.path.join(weights, "rl8_policy.pt"), os.path.join(weights, "value_own.pt"), dev)
+    pb = common.load_params(POLICY_WEIGHTS, VALUE_WEIGHTS, dev)
+    cfg = SearchConfig(expand_thresh=16, max_nodes=2048, no_sim=True)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    _sync(dev)
+    t0 = time.monotonic()
+    wins, total, moves = 0, 0, []
+    for a_is_black in (True, False):
+        games = weights_match.play(gen, pa, pb, ev, ANCHOR_GAMES, cfg, ANCHOR_ROLLOUTS, a_is_black,
+                                   resolved=True, device=dev)
+        # a game ends by a pass (terminal) or runs every move to the cap
+        check(torch.equal(games.done, (games.actions == 81).any(0)), "anchor: a game ended without a pass")
+        check(bool((games.final.turn == weights_match.N_MOVES).all()), "anchor: a game stopped before the cap")
+        check(bool(torch.isfinite(games.scores).all()), "anchor: non-finite scores")
+        check(not bool(games.final.invalid.any()), "anchor: an illegal move")
+        wins += int(games.won.sum())
+        total += games.won.numel()
+        moves += ((games.actions != 81).sum(0)).tolist()
+    dt = time.monotonic() - t0
+    p_hat = wins / total
+    log(f"M2 anchor (rl8 + value_own vs policy_17 + value_r2, {ANCHOR_GAMES} a colour, expand_thresh 16, "
+        f"max_nodes 2048, resolved): A won {wins}/{total} = {p_hat:.3f} +- {common.interval(p_hat, total):.3f} "
+        f"({ANCHOR_ROLLOUTS} rollouts/move, {dt:.0f}s); moves before passing, a game: {moves}; not gated (TPU record at "
+        f"400 rollouts, 16 a colour: 27/32 = 0.844 +- 0.126)")
+    figures["anchor"] = dict(wins=wins, games=total, seconds=dt)
+    del pa
+
+    # M3. the fidelity match, reduced, and K1/K2 at its shapes
+    params = pb
+    # every move past the opening is searched by FAST in one of the two halves
+    fast_moves = config_match.N_MOVES - common.OPEN_PLIES
+    groups = mcts.rollout_groups(FIDELITY_ROLLOUTS, fastmode_fidelity.FAST.eval_every)
+    check(max(n for n, _ in groups) == 8, f"fidelity: groups {groups}")
+    gen = torch.Generator(device=dev).manual_seed(fastmode_fidelity.SEED)
+    wins, total = 0, 0
+    _sync(dev)
+    rollout.reset_launches()
+    t0 = time.monotonic()
+    for fast_is_black in (True, False):
+        games = config_match.play(gen, params, ev, FIDELITY_GAMES, fastmode_fidelity.FAST, fastmode_fidelity.EXACT,
+                                  FIDELITY_ROLLOUTS, FIDELITY_ROLLOUTS, fast_is_black, device=dev)
+        check(bool(torch.isfinite(games.scores).all()) and not bool(games.final.invalid.any()), "fidelity: bad finals")
+        wins += int(games.won.sum())
+        total += games.won.numel()
+    _sync(dev)
+    dt = time.monotonic() - t0
+    fid_counts, fid_rollouts = dict(rollout.launches), rollout.kernel_rollouts
+    check(fid_counts["descend_backprop"] == len(groups) * fast_moves,
+          f"fidelity: K1 launches {fid_counts}, expected {len(groups)} x {fast_moves}")
+    check(fid_rollouts == FIDELITY_ROLLOUTS * fast_moves, f"fidelity: K1 rollouts {fid_rollouts}")
+    check(fid_counts["write_rows"] > 0, f"fidelity: K2 never launched {fid_counts}")
+    pw = wins / total
+    log(f"M3 fidelity ({FIDELITY_GAMES} a colour, {FIDELITY_ROLLOUTS} rollouts): fast winrate {pw:.3f} +/- "
+        f"{common.interval(pw, total, 1e-9):.3f} (95% CI) over {total} games in {dt:.0f}s; FAST launches {fid_counts}, "
+        f"{fid_rollouts} K1 rollouts = {len(groups)} launches x {fast_moves} searched moves, at most 8 rollouts a launch "
+        f"(TPU record at 400 rollouts, 64 a colour: 0.586 +- 0.085)")
+    figures["fidelity"] = dict(wins=wins, games=total, seconds=dt, launches=fid_counts, k1_rollouts=fid_rollouts,
+                               launches_per_searched_move=len(groups))
+    roots = _random_roots(64, 20, seed=8).map(lambda x: x.to(dev))
+    fid_records = check_kernels_at(dev, ev, params, roots, ((FIDELITY_GAMES, 512, 200, False),), levels=6,
+                                   record_at=(FIDELITY_GAMES, 512))
+    check_kernels_at(dev, ev, params, roots, ((64, 512, 200, False),), levels=6, record_at=(64, 512))
+    del roots
+
+    # M4. the serving match: default against --fast --forest 8, timed
+    def preset(flags):
+        cfg = cli.search_config(cli.build_parser().parse_args(flags), dev)
+        return {k: v for k, v in dataclasses.asdict(cfg).items() if k != "no_sim"}
+
+    a = serving_match.make_engine(ev, params, preset([]), 1, MATCH_SECONDS, dev)
+    b = serving_match.make_engine(ev, params, preset(["--fast"]), SERVE_FOREST, MATCH_SECONDS, dev)
+    check(b.scfg.use_kernel and not a.scfg.use_kernel, "serving match: configurations")
+    check(MATCH_OPENING % 2 == 0, "the opening leaves black to move")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    _sync(dev)
+    rollout.reset_launches()
+    t0 = time.monotonic()
+    results = []
+    for g in range(MATCH_GAMES):
+        opening = serving_match.sample_opening(gen, a, MATCH_OPENING)
+        res = serving_match.play_game(a, b, g % 2 == 0, opening, lambda msg: log(f"M4{msg}"))
+        check(res.how != "forfeit", f"serving match game {g + 1}: forfeit")
+        ended = res.how == "resign" or len(res.moves) == serving_match.MAX_MOVES or res.moves[-2:] == [PASS, PASS]
+        check(ended, f"serving match game {g + 1}: ended otherwise ({len(res.moves)} moves)")
+        results.append(res)
+        log(f"M4 game {g + 1}: A (default) as {'B' if g % 2 == 0 else 'W'} {'WON' if res.a_won else 'lost'} "
+            f"({res.how}), {len(res.moves)} moves, genmove s mean {sum(res.seconds) / len(res.seconds):.3f} "
+            f"max {max(res.seconds):.3f}")
+    dt = time.monotonic() - t0
+    sm_counts = dict(rollout.launches)
+    check(sm_counts["descend_backprop"] > 0, f"serving match: the --fast side launched no K1 {sm_counts}")
+    a_wins = sum(r.a_won for r in results)
+    # B's genmoves: the opening has MATCH_OPENING plies, so the first generated move is black's
+    b_moves = sum((len(r.seconds) + (g % 2 == 1)) // 2 for g, r in enumerate(results))
+    log(f"M4 serving match: A winrate {a_wins / MATCH_GAMES:.3f} +/- "
+        f"{common.interval(a_wins / MATCH_GAMES, MATCH_GAMES, 1e-9):.3f} over {MATCH_GAMES} games at "
+        f"{MATCH_SECONDS}s/move ({dt:.0f}s); launches {sm_counts} over {b_moves} genmoves of the --fast side")
+    figures["serving_match"] = dict(
+        a_wins=a_wins, games=MATCH_GAMES, seconds=dt, launches=sm_counts, fast_genmoves=b_moves,
+        moves=[len(r.moves) for r in results], how=[r.how for r in results],
+        genmove_s_max=max(max(r.seconds) for r in results),
+    )
+    del a, b, params
+    torch.cuda.empty_cache()
+    return fid_counts, sm_counts, fid_records, figures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1498,6 +1689,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_figures = training_phases(dev)
     dp_counts, dp_records, dp_figures = dp_phases(dev, params)
+    fid_counts, sm_counts, fid_records, match_figures = match_phases(dev)
 
     log(f"total: {time.monotonic() - t_start:.1f} s")
 
@@ -1517,12 +1709,14 @@ def main() -> int:
         )
         for path, launches, recs in (
             ("selfplay", counts, records), ("gtp_engine_fast", serve_counts, records_serving),
-            ("selfplay_sharded", dp_counts, dp_records),
+            ("selfplay_sharded", dp_counts, dp_records), ("fastmode_fidelity", fid_counts, fid_records),
+            ("serving_match", sm_counts, records_serving),
         )
         for name in ("descend_backprop", "write_rows")
     ]
     log(json.dumps({"training": train_figures}))
     log(json.dumps({"data_parallel": dp_figures}))
+    log(json.dumps({"matches": match_figures}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -145,6 +145,27 @@ def test_repo_trained_exports_match_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+def test_gen0_export_matches_jax():
+    """``data/weights/rl0_policy.pt``, the export of the REINFORCE pool's
+    generation 0 (``rl_pool/policy_0``, the SL seed) that the policy curve
+    plays on the card, gives the JAX package's logits on the orbax
+    checkpoint (the tolerance of the tests above), and is another net than
+    generation 8's."""
+    from bokego_tpu.train import checkpoints
+
+    weights = os.path.join(REPO, "data", "weights")
+    fts = _features(13)
+    policy = tnets.load_policy(os.path.join(weights, "rl0_policy.pt"), device="cpu")
+    pvars = checkpoints.load_variables(os.path.join(weights, "rl_pool", "policy_0"))
+    want = np.asarray(jinference.policy_logits(pvars, fts))
+    got = policy(torch.from_numpy(fts)).detach().numpy()
+    assert float(np.abs(want).max()) > 1.0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=ATOL)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    gen8 = tnets.load_policy(os.path.join(weights, "rl8_policy.pt"), device="cpu")
+    assert float((gen8(torch.from_numpy(fts)).detach() - torch.from_numpy(got)).abs().max()) > 0.1
+
+
 def test_exports_are_not_pool_members(tmp_path):
     """No shipped or exported ``.pt`` under ``data/weights`` counts as an
     opponent-pool generation, even under a ``policy_<n>.pt`` name; a file
