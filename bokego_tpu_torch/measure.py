@@ -74,31 +74,42 @@ def _finish(states, trees, split):
     return {k: v * 1e3 for k, v in split.items()}, states
 
 
-def group_split(states, params, ev) -> tuple[dict[str, float], object]:
-    """Synchronised per-phase host time (ms) of one move played in
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them for the first card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return smi.stdout.strip().splitlines()[0]
+
+
+def group_split(states, params, ev, cfg) -> tuple[dict[str, float], object]:
+    """Synchronised per-phase host time (ms) of one move at ``cfg`` played in
     ``run_search``'s groups; returns the split and the next states."""
     split = collections.Counter()
-    trees, dt = _sync_time(lambda: mcts.init_trees(states, ev, params, CFG))
+    trees, dt = _sync_time(lambda: mcts.init_trees(states, ev, params, cfg))
     split["init_trees"] += dt
-    groups = mcts.rollout_groups(CFG.n_rollouts, CFG.eval_every)
+    groups = mcts.rollout_groups(cfg.n_rollouts, cfg.eval_every)
     for length, evaluate in groups:
-        res, dt = _sync_time(lambda: mcts.launch_rollouts(trees, ev, CFG, length))
-        split[f"K1 launches ({len(groups)} for {CFG.n_rollouts} rollouts)"] += dt
+        res, dt = _sync_time(lambda: mcts.launch_rollouts(trees, ev, cfg, length))
+        split[f"K1 launches ({len(groups)} for {cfg.n_rollouts} rollouts)"] += dt
         if evaluate:
-            trees, dt = _sync_time(lambda: mcts.evaluate_leaves(trees, ev, params, CFG, res))
+            trees, dt = _sync_time(lambda: mcts.evaluate_leaves(trees, ev, params, cfg, res))
             split["eval phases"] += dt
     return _finish(states, trees, split)
 
 
-def phase_split(states, params, ev) -> tuple[dict[str, float], object]:
-    """Synchronised per-phase host time (ms) of one move played rollout by
-    rollout (``search_step``); returns the split and the next states."""
+def phase_split(states, params, ev, cfg) -> tuple[dict[str, float], object]:
+    """Synchronised per-phase host time (ms) of one move at ``cfg`` played
+    rollout by rollout (``search_step``); returns the split and the next
+    states."""
     split = collections.Counter()
-    trees, dt = _sync_time(lambda: mcts.init_trees(states, ev, params, CFG))
+    trees, dt = _sync_time(lambda: mcts.init_trees(states, ev, params, cfg))
     split["init_trees"] += dt
-    for i in range(CFG.n_rollouts):
-        trees, dt = _sync_time(lambda: mcts.search_step(trees, ev, params, CFG, i))
-        split["eval rollouts" if i % CFG.eval_every == 0 else "light rollouts"] += dt
+    for i in range(cfg.n_rollouts):
+        trees, dt = _sync_time(lambda: mcts.search_step(trees, ev, params, cfg, i))
+        split["eval rollouts" if i % cfg.eval_every == 0 else "light rollouts"] += dt
     return _finish(states, trees, split)
 
 
@@ -263,14 +274,10 @@ def main():
     ev = mcts.net_evaluator()
     states = st.new_game_batch(BENCH_BATCH, device=dev)
     print(f"{torch.cuda.get_device_name(0)}; batch {BENCH_BATCH}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     plan = [("grouped", group_split)] * MOVES + [("rollout by rollout", phase_split)]
     for m, (how, split_fn) in enumerate(plan):
-        split, states = split_fn(states, params, ev)
+        split, states = split_fn(states, params, ev, CFG)
         total = sum(split.values())
         parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
         print(f"move {m} ({how}): synchronised total {total:.2f} ms: {parts}")

@@ -112,15 +112,30 @@ Phases (any failure exits non-zero; nothing is caught):
     two passes, a resignation or the move cap, and the ``--fast`` side
     launched K1.
 
-The last five lines of standard output are the training phases' figures,
-the data-parallel phases' figures, the matches' figures, the kernels' JSON
-record (K1 and K2 once at the self-play path's shapes, once at the serving
-path's, once at the ``selfplay_sharded`` path's per-rank shapes with rank
-0's launches of phase 23, once at the fidelity match's shapes with its
-FAST side's launches, and the serving match's launches beside the serving
-path's shapes, which its ``--fast --forest 8`` side shares) and the device
-line ``{"ok": true, "device": {...}}``; the line before them is
-``nvidia-smi``'s name and power limit.
+30. the roofline report (``bokego_tpu_torch.mfu_report``) at the bench
+    configuration for one synchronised move, its table printed: in the
+    split move and in the timed move (counts read around each) 51 K1
+    launches and at most the JAX tool's 51 forwards at B=1024 (an eval step
+    on which no tree has work skips its forward, as in the JAX package),
+    one K2 launch for each, FLOP counts equal to
+    ``net_flops`` and the nominal one to ``torch.utils.flop_counter``'s on
+    the card, the convolution kernels named; then K1 and K2 against their
+    plain versions at B=1024, Nmax=512, levels=6;
+31. batched simulation throughput (``bokego_tpu_torch.sim_throughput``) at
+    B=SIM_BATCH from ply SIM_PLIES, cut to SIM_TOOL_ROLLOUTS rollouts and
+    SIM_RUNS timed run: no kernel launch, every root's visits grown by
+    exactly the runs' rollouts, the JAX tool's result line printed.
+
+The last six lines of standard output are the training phases' figures,
+the data-parallel phases' figures, the matches' figures, the tools'
+figures, the kernels' JSON record (K1 and K2 once at the self-play path's
+shapes, once at the serving path's, once at the ``selfplay_sharded``
+path's per-rank shapes with rank 0's launches of phase 23, once at the
+fidelity match's shapes with its FAST side's launches, the serving
+match's launches beside the serving path's shapes, which its ``--fast
+--forest 8`` side shares, and phase 30's move's launches beside the
+records at its shapes) and the device line ``{"ok": true, "device":
+{...}}``; the line before them is ``nvidia-smi``'s name and power limit.
 """
 
 from __future__ import annotations
@@ -137,8 +152,8 @@ import time
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+from bokego_tpu_torch.mfu_report import bound_ms, k1_work
+
 MOVES = 20  # self-play moves of the self-play path
 SERVE_ROLLOUTS = 400  # rollouts per generated move of the served sessions
 SERVE_FOREST = 8  # trees of the --fast session
@@ -158,6 +173,8 @@ CURVE_Z = 3.29  # M1's gate: two-sample standard errors from the TPU record
 ANCHOR_GAMES, ANCHOR_ROLLOUTS = 4, 64  # M2: the anchor match cut to 4 games a colour at 64 rollouts
 FIDELITY_GAMES, FIDELITY_ROLLOUTS = 8, 64  # M3: the fidelity match cut to 8 games a colour at 64 rollouts
 MATCH_GAMES, MATCH_SECONDS, MATCH_OPENING = 2, 0.1, 6  # M4: timed serving games
+SIM_BATCH, SIM_PLIES = 256, 40  # phase 31: sim_throughput's batch and midgame start, as the JAX tool's
+SIM_TOOL_ROLLOUTS, SIM_RUNS = 8, 1  # phase 31: cut from 64 rollouts and 3 timed runs
 
 
 def log(msg: str) -> None:
@@ -202,46 +219,6 @@ def time_ms(fn, iters: int) -> tuple[float, float]:
     eager = _events_ms(lambda: [fn() for _ in range(iters)], iters)
     del graph
     return device, eager
-
-
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
-def k1_work(results, parent, levels: int, planes: int) -> tuple[int, int]:
-    """Bytes and operations that the rollouts described by ``results`` (one
-    kernel ``res`` per rollout, all from one call) need: every stats row
-    walked through read once (81 actions of ``planes`` planes; the child
-    plane alone for a leaf's row, read to find it childless), every updated
-    edge written once (N, Wv), every leaf value read once, and per tree the
-    root, the root stats in and out, one child-terminal float and the result
-    row.  The paths are rebuilt from the leaves through ``parent``."""
-    from bokego_tpu_torch.ops.rollout import unpack
-
-    batch = parent.shape[0]
-    ar = torch.arange(batch, device=parent.device)
-    inner = torch.zeros_like(parent, dtype=torch.bool)
-    leaf_rows, edges, leaves = inner.clone(), inner.clone(), inner.clone()
-    walked = 0
-    for res in results:
-        kd = unpack(res)
-        node, left = kd.leaf, kd.depth.clone()
-        leaves[ar, node] = True
-        early = kd.depth < levels
-        leaf_rows[ar[early], node[early]] = True
-        walked += int(kd.depth.sum())
-        for _ in range(levels):
-            on = left > 0
-            edges[ar[on], node[on]] = True
-            node = torch.where(on, parent[ar, node], node)
-            inner[ar[on], node[on]] = True
-            left -= 1
-    n_bytes = (
-        int(inner.sum()) * 81 * planes * 4 + int((leaf_rows & ~inner).sum()) * 81 * 4
-        + int(edges.sum()) * 8 + int(leaves.sum()) * 4 + batch * (8 + 12 + 12 + 4 + 512)
-    )
-    return n_bytes, walked * 81 * 12
 
 
 def reverse_pools(trees):
@@ -1475,6 +1452,72 @@ def match_phases(dev) -> tuple[dict, dict, dict, dict]:
     return fid_counts, sm_counts, fid_records, figures
 
 
+def tool_phases(dev, params) -> tuple[dict, dict, dict]:
+    """Phases 30-31, the measurement tools; returns the K1/K2 launch counts
+    of phase 30's move, the kernel records at its shapes and the figures."""
+    from bokego_tpu_torch import mfu_report, sim_throughput
+    from bokego_tpu_torch.config import BENCH_BATCH as BATCH, BENCH_CONFIG as CFG
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.search import mcts
+
+    # 30. the roofline report for one synchronised move at the bench configuration
+    t0 = time.monotonic()
+    rep = mfu_report.report(dev, BATCH, CFG.n_rollouts, CFG.eval_every, moves=1)
+    counts = rep["counts"][0]
+    groups = len(mcts.rollout_groups(CFG.n_rollouts, CFG.eval_every))
+    check(rep["model_forwards"] == 51 and groups == 51, f"model {rep['model_forwards']} forwards, {groups} groups")
+    # An eval step on which no tree has work skips its forward (as the JAX
+    # package's lax.cond does), so a move runs at most the model's 51; each
+    # forward's expansion is one K2 launch.
+    for what, c in (("split move", rep["split_counts"]), ("timed move", counts)):
+        n = len(c.forwards)
+        check(1 <= n <= 51 and c.forwards == [BATCH] * n, f"mfu_report {what}: forwards {c.forwards} at B={BATCH}")
+        check(c.launches["write_rows"] == n, f"mfu_report {what}: K2 launches {c.launches}, forwards {n}")
+        check(c.k1_calls == 51 and c.launches["descend_backprop"] == 51,
+              f"mfu_report {what}: K1 calls {c.k1_calls}, launches {c.launches}, expected 51")
+        check(c.kernel_rollouts == CFG.n_rollouts, f"mfu_report {what}: K1 rollouts {c.kernel_rollouts}")
+    n = len(counts.forwards)
+    f_net = mfu_report.net_flops(mfu_report.CHANNELS, BATCH)
+    check(rep["net_flops"] == f_net, f"forward FLOPs {rep['net_flops']}, net_flops {f_net}")
+    check(rep["nominal_flops_counted"] == f_net[1],
+          f"flop_counter on the card {rep['nominal_flops_counted']}, nominal net_flops {f_net[1]}")
+    check(rep["move_flops"] == (n * f_net[0] + rep["k1_ops"], n * f_net[1] + rep["k1_ops"]),
+          f"move FLOPs {rep['move_flops']} are not {n} forwards and K1's operations")
+    check(rep["kernels"] and rep["conv_ms"] > 0, "no convolution kernel named")
+    check(all(0 < t < 60e3 for t in [rep["forward_ms"], *rep["move_ms"], *rep["split"].values()]),
+          f"times out of range: {rep['forward_ms']}, {rep['move_ms']}, {rep['split']}")
+    roots = _random_roots(BATCH, 20, seed=9).map(lambda x: x.to(dev))
+    records = check_kernels_at(dev, mcts.net_evaluator(), params, roots, ((BATCH, 512, 200, False),),
+                               levels=CFG.kernel_levels, record_at=(BATCH, 512))
+    del roots
+    torch.cuda.empty_cache()
+    figures = dict(
+        mfu_report=dict(
+            seconds=time.monotonic() - t0, forward_ms=rep["forward_ms"], move_ms=rep["move_ms"], split_ms=rep["split"],
+            conv_ms=rep["conv_ms"], net_gflop=[f / 1e9 for f in f_net], move_tflop=[f / 1e12 for f in rep["move_flops"]],
+            k1_bytes=rep["k1_bytes"], launches=counts.launches, forwards=n, conv_kernels=rep["kernels"],
+        )
+    )
+    log(f"mfu_report: {len(rep['split_counts'].forwards)} and {n} forwards (as many K2 launches; model 51) and 51 K1 "
+        f"launches a move, FLOPs as net_flops; K1/K2 bit for bit at B={BATCH}; {figures['mfu_report']['seconds']:.1f} s")
+
+    # 31. batched simulation throughput, cut to SIM_TOOL_ROLLOUTS rollouts and SIM_RUNS timed run
+    rollout.reset_launches()
+    t0 = time.monotonic()
+    res, rate = sim_throughput.run(dev, SIM_BATCH, SIM_TOOL_ROLLOUTS, SIM_PLIES, runs=SIM_RUNS)
+    sim_counts = dict(rollout.launches)
+    check(not any(sim_counts.values()), f"sim_throughput launched a kernel: {sim_counts}")
+    check(bool((res.trees.root_stats[:, 0] == (SIM_RUNS + 1) * SIM_TOOL_ROLLOUTS).all()),
+          "sim_throughput: root visits are not the runs' rollouts")
+    check(rate is not None and rate > 0 and res.forwards[0] >= SIM_TOOL_ROLLOUTS, f"sim_throughput: rate {rate}")
+    figures["sim_throughput"] = dict(
+        batch=SIM_BATCH, rollouts=SIM_TOOL_ROLLOUTS, rollouts_per_s=rate, seconds=res.seconds,
+        policy_forwards=res.forwards, wall_s=time.monotonic() - t0,
+    )
+    log(f"sim_throughput: every root's N grew by exactly {SIM_TOOL_ROLLOUTS} a run; launches {sim_counts}")
+    return counts.launches, records, figures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1489,6 +1532,7 @@ def main() -> int:
     from bokego_tpu_torch.env import rules, state as st
     from bokego_tpu_torch.features import features_batch
     from bokego_tpu_torch.models import nets
+    from bokego_tpu_torch.measure import card_line
     from bokego_tpu_torch.ops import build, rollout
     from bokego_tpu_torch.parallel.selfplay import selfplay
     from bokego_tpu_torch.search import mcts
@@ -1690,14 +1734,11 @@ def main() -> int:
     train_figures = training_phases(dev)
     dp_counts, dp_records, dp_figures = dp_phases(dev, params)
     fid_counts, sm_counts, fid_records, match_figures = match_phases(dev)
+    mfu_counts, mfu_records, tool_figures = tool_phases(dev, params)
 
     log(f"total: {time.monotonic() - t_start:.1f} s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    log(smi.stdout.strip().splitlines()[0])
+    log(card_line())
     replaces = {
         "descend_backprop": "bokego_tpu/ops/rollout.py:219",
         "write_rows": "bokego_tpu/ops/rollout.py:325",
@@ -1710,13 +1751,14 @@ def main() -> int:
         for path, launches, recs in (
             ("selfplay", counts, records), ("gtp_engine_fast", serve_counts, records_serving),
             ("selfplay_sharded", dp_counts, dp_records), ("fastmode_fidelity", fid_counts, fid_records),
-            ("serving_match", sm_counts, records_serving),
+            ("serving_match", sm_counts, records_serving), ("mfu_report", mfu_counts, mfu_records),
         )
         for name in ("descend_backprop", "write_rows")
     ]
     log(json.dumps({"training": train_figures}))
     log(json.dumps({"data_parallel": dp_figures}))
     log(json.dumps({"matches": match_figures}))
+    log(json.dumps({"tools": tool_figures}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,
