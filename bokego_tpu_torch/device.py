@@ -17,6 +17,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` when it is a GPU (a host
+    clock read after it times the device's work); nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def fp32_only() -> None:
     """Keep convolutions and matmuls in full fp32 (no TF32), as the JAX
     package's float32 nets compute and as every parity check assumes."""

@@ -1,18 +1,32 @@
 """Batched inference over the nets (counterpart of
 ``bokego_tpu/models/inference.py``): every function takes ``(B, 9, 9, 27)``
-NHWC feature stacks and runs without autograd."""
+NHWC feature stacks and runs without autograd.  ``dtype=torch.bfloat16``
+takes the nets' bf16 route (``models/nets.py``) and returns float32."""
 
 from __future__ import annotations
 
 import torch
 
+from bokego_tpu_torch.features import features_batch
 from bokego_tpu_torch.models.nets import PolicyNet, PolicyNetV2, ValueNet
 
 
+def _forward(net, fts: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``net(fts)``; with a ``dtype``, the nets' route in that dtype (any
+    module with a one-argument forward serves the float32 default)."""
+    return net(fts) if dtype is None else net(fts, dtype)
+
+
 @torch.inference_mode()
-def policy_probs(net: PolicyNet, fts: torch.Tensor) -> torch.Tensor:
+def policy_logits(net: PolicyNet, fts: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """(B, 9, 9, 27) -> (B, 81) logits (eval mode, running BatchNorm statistics)."""
+    return _forward(net, fts, dtype)
+
+
+@torch.inference_mode()
+def policy_probs(net: PolicyNet, fts: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """(B, 9, 9, 27) -> (B, 81) softmax over the points."""
-    return torch.softmax(net(fts), dim=-1)
+    return torch.softmax(_forward(net, fts, dtype), dim=-1)
 
 
 @torch.inference_mode()
@@ -22,9 +36,16 @@ def policy_logits_v2(net: PolicyNetV2, fts: torch.Tensor) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def value_fn(net: ValueNet, fts: torch.Tensor) -> torch.Tensor:
+def value_fn(net: ValueNet, fts: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """(B, 9, 9, 27) -> (B,) value in (-1, 1) for the side to move."""
-    return net(fts)[..., 0]
+    return _forward(net, fts, dtype)[..., 0]
+
+
+def policy_value_states(policy: PolicyNet, value: ValueNet, states) -> tuple[torch.Tensor, torch.Tensor]:
+    """A batch of GoStates -> (probs (B, 81), values (B,)), the features
+    computed on the states' device."""
+    fts = features_batch(states)
+    return policy_probs(policy, fts), value_fn(value, fts)
 
 
 def sample_moves(gen: torch.Generator, probs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

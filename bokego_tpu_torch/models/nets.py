@@ -15,7 +15,23 @@ BatchNorm in ``train()`` mode follows Flax's ``nn.BatchNorm``, not torch's:
 it normalises by the biased batch variance and folds that same biased
 variance into ``running_var`` (torch folds in the unbiased one, a factor
 ``n / (n - 1)``: 3 % for ``lin_bn`` at a batch of 32).  In ``eval()`` mode
-it is the stock layer.
+it is the stock layer while input, statistics and parameters are float32.
+
+**bf16** (``forward(x, dtype=torch.bfloat16)``, the JAX package's
+``net_evaluator(dtype=jnp.bfloat16)``): every float32 parameter and
+statistic is rounded to bf16 for the call and the features are cast to
+bf16, as the JAX evaluator's ``_cast`` does; a module stored in bf16
+(``net.to(torch.bfloat16)``, ``bench.py``'s variant) takes the same route
+and gives the same bits.  Each layer then computes as its Flax counterpart
+does, in its input's dtype: the Flax convolutions and dense layers take
+``dtype=x.dtype`` and every BatchNorm returns float32, so only the 5x5 stem
+convolution and its BatchNorm run in bf16, and every later layer computes
+in float32 on weights rounded to bf16 (a "bf16 trunk" that is 91 % fp32 by
+FLOPs).  The rounding points are those of the JAX graph as XLA runs it: a
+bf16 result is rounded to bf16 unless its only use is a cast to float32,
+which XLA's default excess precision keeps in float32 (the BatchNorm
+scale ``rsqrt(var + eps) * scale`` of the float32 layers, the stem
+BatchNorm's last ``+ bias``).
 """
 
 from __future__ import annotations
@@ -35,7 +51,9 @@ class _FlaxStatsBatchNorm:
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            if x.dtype == self.running_var.dtype == torch.float32:
+                return super().forward(x)
+            return self._eval_rounded(x)
         dims = [0, *range(2, x.dim())]
         shape = [1, -1] + [1] * (x.dim() - 2)
         mean = x.mean(dims)
@@ -48,6 +66,21 @@ class _FlaxStatsBatchNorm:
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
+    def _eval_rounded(self, x: torch.Tensor) -> torch.Tensor:
+        """Flax's eval-mode normalisation on bf16 statistics and parameters
+        (``flax.linen.normalization._normalize``), float32 out: ``rsqrt(var
+        + eps)`` in bf16 (eps rounded to bf16, as JAX's weak-typed constant
+        is); the scale times it in bf16 for a bf16 input, else in float32;
+        ``x - mean`` and the product in the input's dtype; the bias added in
+        float32."""
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean, var, scale, bias = (
+            t.view(shape) for t in (self.running_mean, self.running_var, self.weight, self.bias)
+        )
+        inv = torch.rsqrt(var + torch.tensor(self.eps, dtype=var.dtype))
+        mul = inv * scale if x.dtype == inv.dtype else inv.float() * scale.float()
+        return ((x - mean) * mul).float() + bias.float()
+
 
 class BatchNorm2d(_FlaxStatsBatchNorm, nn.BatchNorm2d):
     pass
@@ -57,8 +90,29 @@ class BatchNorm1d(_FlaxStatsBatchNorm, nn.BatchNorm1d):
     pass
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype (Flax's ``nn.Conv(dtype=x.dtype)``):
+    float32 in, the stock layer (on bf16-rounded weights when the module is
+    stored in bf16); bf16 in, the convolution in bf16, its output rounded,
+    then the bias added in bf16, as the JAX graph adds it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if x.dtype == torch.float32:
+            return self._conv_forward(x, w, b)
+        return self._conv_forward(x, w, None) + b.view(-1, 1, 1)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype (Flax's ``nn.Dense(dtype=x.dtype)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class UntiedBiasConv(nn.Module):
-    """Conv with a shared kernel and a per-position bias ``(out, 9, 9)``."""
+    """Conv with a shared kernel and a per-position bias ``(out, 9, 9)``, in
+    its input's dtype."""
 
     def __init__(self, in_channels: int, out_channels: int = 1, size: int = 9):
         super().__init__()
@@ -67,7 +121,7 @@ class UntiedBiasConv(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=5**0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn.functional.conv2d(x, self.weight) + self.bias
+        return nn.functional.conv2d(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
 
 
 def _trunk(channels: int) -> nn.Sequential:
@@ -76,7 +130,7 @@ def _trunk(channels: int) -> nn.Sequential:
     in_ch = 27
     for k in [5] + [3] * 6:
         layers += [
-            nn.Conv2d(in_ch, channels, k, padding=k // 2),
+            Conv2d(in_ch, channels, k, padding=k // 2),
             BatchNorm2d(channels, eps=1e-5, momentum=0.1),
             nn.ReLU(),
         ]
@@ -89,6 +143,19 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def cast_call(net: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``net(x)`` with every float32 parameter and buffer rounded to
+    ``dtype`` for this call and ``x`` cast to ``dtype`` (the JAX evaluator's
+    ``_cast``); a module already stored in ``dtype`` runs as it is.  The
+    output as float32."""
+    rounded = {
+        name: t.to(dtype)
+        for name, t in [*net.named_parameters(), *net.named_buffers()]
+        if t.dtype == torch.float32
+    }
+    return torch.func.functional_call(net, rounded, (x.to(dtype),)).float()
+
+
 class PolicyNet(nn.Module):
     """(B, 9, 9, 27) -> (B, 81) move logits."""
 
@@ -96,7 +163,9 @@ class PolicyNet(nn.Module):
         super().__init__()
         self.conv = _trunk(channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        if dtype is not None:
+            return cast_call(self, x, dtype)
         return self.conv(_nchw(x)).reshape(x.shape[0], NN)
 
 
@@ -107,11 +176,13 @@ class ValueNet(nn.Module):
         super().__init__()
         self.conv = _trunk(channels)
         self.bn = BatchNorm2d(1, eps=1e-5, momentum=0.1)
-        self.lin1 = nn.Linear(NN, 64)
+        self.lin1 = Linear(NN, 64)
         self.lin_bn = BatchNorm1d(64, eps=1e-5, momentum=0.1)
-        self.lin2 = nn.Linear(64, 1)
+        self.lin2 = Linear(64, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        if dtype is not None:
+            return cast_call(self, x, dtype)
         x = torch.relu(self.bn(self.conv(_nchw(x))))
         x = torch.relu(self.lin_bn(self.lin1(x.reshape(x.shape[0], NN))))
         return torch.tanh(self.lin2(x))

@@ -85,20 +85,26 @@ class Evaluator(NamedTuple):
     policy_probs: Callable | None = None
 
 
-def net_evaluator(has_value: bool = True) -> Evaluator:
+def net_evaluator(has_value: bool = True, dtype: torch.dtype | None = None) -> Evaluator:
     """Evaluator over the nets; ``params = {"policy": PolicyNet, "value":
-    ValueNet}`` (modules on the search's device, in eval mode)."""
+    ValueNet}`` (modules on the search's device, in eval mode).
+
+    ``dtype=torch.bfloat16`` is the JAX evaluator's bf16 route: the
+    parameters rounded to bf16 on each call (or stored in bf16 once) and
+    the features cast to bf16, so the stem convolution runs in bf16 and the
+    rest in float32 on rounded weights (``models/nets.py``); probabilities
+    and values come back as float32.  The default computes in float32."""
 
     def evaluate_fts(params, fts):
-        probs = inference.policy_probs(params["policy"], fts)
-        vals = inference.value_fn(params["value"], fts) if has_value else None
+        probs = inference.policy_probs(params["policy"], fts, dtype)
+        vals = inference.value_fn(params["value"], fts, dtype) if has_value else None
         return probs, vals
 
     def evaluate(params, states):
         return evaluate_fts(params, features_batch(states))
 
     def policy_probs(params, states):
-        return inference.policy_probs(params["policy"], features_batch(states))
+        return inference.policy_probs(params["policy"], features_batch(states), dtype)
 
     return Evaluator(
         evaluate=evaluate, has_value=has_value, evaluate_fts=evaluate_fts, policy_probs=policy_probs

@@ -29,6 +29,7 @@ import torch
 
 from bokego_tpu_torch.bin import add_device_flag, device_from
 from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS, SearchConfig
+from bokego_tpu_torch.device import synchronize
 from bokego_tpu_torch.env import state as st
 from bokego_tpu_torch.measure import card_line
 from bokego_tpu_torch.models import nets
@@ -59,11 +60,6 @@ class SimRuns:
     forwards: list[int]
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def sim_runs(states, ev: mcts.Evaluator, params, cfg: SearchConfig, rollouts: int, runs: int, device) -> SimRuns:
     """``init_trees``, one warm ``run_search`` of ``rollouts``, then ``runs``
     timed ones on the same trees (playouts drawn from generators seeded 0
@@ -82,10 +78,10 @@ def sim_runs(states, ev: mcts.Evaluator, params, cfg: SearchConfig, rollouts: in
         gen = torch.Generator(device=device).manual_seed(i)
         before = trees.root_stats[:, 0].clone()
         forwards[0] = 0
-        _sync(device)
+        synchronize(device)
         t0 = time.perf_counter()
         trees = mcts.run_search(trees, cev, params, cfg, rollouts, gen=gen)
-        _sync(device)
+        synchronize(device)
         dt = time.perf_counter() - t0
         grown = trees.root_stats[:, 0] - before
         if not bool((grown == rollouts).all()):

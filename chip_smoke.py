@@ -64,11 +64,12 @@ Phases (any failure exits non-zero; nothing is caught):
 18. one REINFORCE iteration (``-b 16 --max-turns 70``), self-play and update
     timed apart;
 19. the AlphaZero trajectory with the deterministic evaluator at temperature
-    0 without noise, GPU against CPU, then one iteration at B=64, 80 moves,
-    64 rollouts with the shipped nets (self-play and update timed apart);
+    0 without noise, GPU against CPU, then one iteration at B=AZ_BATCH, AZ_MOVES moves,
+    AZ_ROLLOUTS rollouts with the shipped nets (self-play and update timed apart);
     phases 14-19 launch neither kernel (counts read around them);
 20. every training entry point (``python -m bokego_tpu_torch.bin.<name>``)
-    as a process on the GPU at a small size, ``alphazero --resume`` too.
+    as a process on the GPU at a small size, ``alphazero --resume`` too, in
+    three waves of processes side by side.
 
 21. data parallelism over NCCL at world 1 on ``cuda:0`` (a process group of
     this process alone): ``selfplay_sharded`` at the bench configuration and
@@ -126,16 +127,42 @@ Phases (any failure exits non-zero; nothing is caught):
     SIM_RUNS timed run: no kernel launch, every root's visits grown by
     exactly the runs' rollouts, the JAX tool's result line printed.
 
-The last six lines of standard output are the training phases' figures,
+32. the headline bench, ``python -m bokego_tpu_torch.bench``, as a process
+    at its full default (B=1024, 80 moves of 400 rollouts, fp32): exit 0 and
+    one JSON line with ``bench.py``'s keys, a positive value and
+    ``vs_baseline`` null, printed;
+33. the bf16 route: ``net_evaluator(dtype=torch.bfloat16)`` on the card
+    against the CPU at B=256 positions of seeded random games, with the
+    shipped nets and with the bench's random-init nets, within BF16_TOL on
+    probabilities and values; nets stored in bf16 give the bits of the
+    per-call rounding; then BENCH_PAIR_MOVES bench moves at B=1024 in turns,
+    fp32, bf16, bf16, fp32 (``bench.run`` in process, launch counts read
+    around each run: 51 K1 launches a move), ms/move printed, and the share
+    of games with the same board after those moves, fp32 against bf16 and
+    each against its repeat;
+34. the batch variant: the bench at B=BIG_BATCH for BIG_MOVES moves in
+    process, its K1 and K2 launches a move and ``max_memory_allocated``;
+    then K1 and K2 against their plain versions at B=BIG_BATCH, Nmax=512,
+    levels=6, bit for bit, timed;
+35. ``serving_latency`` at ``--time LATENCY_SECONDS``, one trial, in the
+    default configuration and with a forest of 8: root visits grew on both
+    paths, no kernel launch;
+36. ``python -m bokego_tpu_torch.parallel.scaling 2 SCALING_K --device
+    cuda:0 --backend gloo``: exit 0, actions and scores IDENTICAL.
+
+The last seven lines of standard output are the training phases' figures,
 the data-parallel phases' figures, the matches' figures, the tools'
-figures, the kernels' JSON record (K1 and K2 once at the self-play path's
-shapes, once at the serving path's, once at the ``selfplay_sharded``
-path's per-rank shapes with rank 0's launches of phase 23, once at the
-fidelity match's shapes with its FAST side's launches, the serving
-match's launches beside the serving path's shapes, which its ``--fast
---forest 8`` side shares, and phase 30's move's launches beside the
-records at its shapes) and the device line ``{"ok": true, "device":
-{...}}``; the line before them is ``nvidia-smi``'s name and power limit.
+figures, the bench phases' figures, the kernels' JSON record (K1 and K2
+once at the self-play path's shapes, once at the serving path's, once at
+the ``selfplay_sharded`` path's per-rank shapes with rank 0's launches of
+phase 23, once at the fidelity match's shapes with its FAST side's
+launches, the serving match's launches beside the serving path's shapes,
+which its ``--fast --forest 8`` side shares, phase 30's move's launches
+beside the records at its shapes, the bench path's launches (phase 33's
+first fp32 run, the warm-up move included) beside phases 2-3's records at
+its shapes, and phase 34's launches beside its records at B=BIG_BATCH) and
+the device line ``{"ok": true, "device": {...}}``; the line before them is
+``nvidia-smi``'s name and power limit.
 """
 
 from __future__ import annotations
@@ -164,17 +191,23 @@ SIM_ROLLOUTS = 16  # rollouts per generated move of the --simulate session: ever
 FUSED = 8  # rollouts per launch in the K1 check: the main path's eval_every
 GEN_BATCH = 512  # games of the gendata phase and positions of the genvals batch
 SL_BATCH, SL_STEPS = 256, 200  # SL phase: steps at this batch, policy and value
-AZ_BATCH, AZ_MOVES, AZ_ROLLOUTS = 64, 80, 64  # the AlphaZero iteration (bin defaults but the batch)
+AZ_BATCH, AZ_MOVES, AZ_ROLLOUTS = 64, 40, 64  # the AlphaZero iteration (bin defaults but the batch, and 40 of
+# its 80 moves to keep the script within half its time limit)
 DP_MOVES = 4  # self-play moves of each data-parallel self-play run
 DP_BATCH = 512  # global games of the 2-rank runs (2 x 256)
 CURVE_GAMES = 256  # M1: raw-policy games a colour per generation, as the TPU record
 CURVE_RECORDS = {8: (359, 512), 0: (185, 512)}  # data/training_logs/policy_curve.txt (TPU)
 CURVE_Z = 3.29  # M1's gate: two-sample standard errors from the TPU record
-ANCHOR_GAMES, ANCHOR_ROLLOUTS = 4, 64  # M2: the anchor match cut to 4 games a colour at 64 rollouts
+ANCHOR_GAMES, ANCHOR_ROLLOUTS = 4, 32  # M2: the anchor match cut to 4 games a colour at 32 rollouts
 FIDELITY_GAMES, FIDELITY_ROLLOUTS = 8, 64  # M3: the fidelity match cut to 8 games a colour at 64 rollouts
 MATCH_GAMES, MATCH_SECONDS, MATCH_OPENING = 2, 0.1, 6  # M4: timed serving games
 SIM_BATCH, SIM_PLIES = 256, 40  # phase 31: sim_throughput's batch and midgame start, as the JAX tool's
 SIM_TOOL_ROLLOUTS, SIM_RUNS = 8, 1  # phase 31: cut from 64 rollouts and 3 timed runs
+BENCH_PAIR_MOVES = 20  # phase 33: moves of each paired fp32 / bf16 bench run at B=1024
+BIG_BATCH, BIG_MOVES = 4096, 8  # phase 34: the batch variant (BASELINE.json config 4's 4096 games)
+BF16_TOL = 1e-4  # phase 33: the bf16 evaluator on the card against the CPU (ATOL_BF16 of tests/test_torch_bench.py)
+LATENCY_SECONDS = 1.0  # phase 35: serving_latency's --time, one trial a path
+SCALING_K = 4  # phase 36: games per rank of parallel.scaling over 2 gloo ranks on cuda:0
 
 
 def log(msg: str) -> None:
@@ -1038,38 +1071,52 @@ def training_phases(dev) -> dict:
 
 def train_clis(work: str) -> dict:
     """Phase 20: ``python -m bokego_tpu_torch.bin.<name>`` on the GPU (the
-    default device), one after another, each at a small size."""
+    default device), each at a small size: in three waves of processes that
+    run side by side, each wave reading what the waves before it wrote."""
     from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": root}
-    runs = [
-        ("gen_policy_data", ["-n", "64", "--batch", "64", "--max-turns", "30", "-o", "cli", "--packed",
-                             "--policy", POLICY_WEIGHTS]),
-        ("gen_policy_data", ["-n", "16", "--batch", "16", "--max-turns", "20", "-o", "cli.csv"]),
-        ("process_data", ["cli.csv", "cli_shard", "--shards", "--shard-size", "4096"]),
-        ("process_data", ["cli.csv", "cli.npz"]),
-        ("train", ["-d", "cli-c000-00000.pshard.npz", "--kind", "policy", "--bs", "256", "--lr", "1e-4",
-                   "-o", "cli_policy.pt"]),
-        ("train", ["-d", "cli.npz", "--kind", "policy", "--bs", "64", "-c", "cli_policy.pt", "-o", "cli_policy2.pt"]),
-        ("genvals", ["-n", "1", "--batch", "1024", "--max-turns", "30", "--min-r", "10", "--max-r", "20",
-                     "-o", "cli_v.csv", "--sl", POLICY_WEIGHTS]),
-        ("train", ["-d", "cli_v.csv", "--kind", "value", "--bs", "256", "--init-from-policy", POLICY_WEIGHTS,
-                   "-o", "cli_value.pt"]),
-        ("selfplay", ["-e", "1", "-n", "1", "-b", "8", "--max-turns", "30", "-w", "cli_pool", "-f", "cli_rl.txt"]),
-        ("alphazero", ["--iters", "1", "--batch", "4", "--moves", "6", "--rollouts", "16", "-o", "cli_az",
-                       "--policy", POLICY_WEIGHTS, "--value", VALUE_WEIGHTS]),
-        ("alphazero", ["--iters", "1", "--batch", "4", "--moves", "6", "--rollouts", "16", "-o", "cli_az", "--resume"]),
+    waves = [
+        [
+            ("gen_policy_data", ["-n", "64", "--batch", "64", "--max-turns", "30", "-o", "cli", "--packed",
+                                 "--policy", POLICY_WEIGHTS]),
+            ("gen_policy_data", ["-n", "16", "--batch", "16", "--max-turns", "20", "-o", "cli.csv"]),
+            ("genvals", ["-n", "1", "--batch", "1024", "--max-turns", "30", "--min-r", "10", "--max-r", "20",
+                         "-o", "cli_v.csv", "--sl", POLICY_WEIGHTS]),
+            ("selfplay", ["-e", "1", "-n", "1", "-b", "8", "--max-turns", "30", "-w", "cli_pool", "-f", "cli_rl.txt"]),
+            ("alphazero", ["--iters", "1", "--batch", "4", "--moves", "6", "--rollouts", "16", "-o", "cli_az",
+                           "--policy", POLICY_WEIGHTS, "--value", VALUE_WEIGHTS]),
+        ],
+        [
+            ("process_data", ["cli.csv", "cli_shard", "--shards", "--shard-size", "4096"]),
+            ("process_data", ["cli.csv", "cli.npz"]),
+            ("train", ["-d", "cli-c000-00000.pshard.npz", "--kind", "policy", "--bs", "256", "--lr", "1e-4",
+                       "-o", "cli_policy.pt"]),
+            ("train", ["-d", "cli_v.csv", "--kind", "value", "--bs", "256", "--init-from-policy", POLICY_WEIGHTS,
+                       "-o", "cli_value.pt"]),
+            ("alphazero", ["--iters", "1", "--batch", "4", "--moves", "6", "--rollouts", "16", "-o", "cli_az",
+                           "--resume"]),
+        ],
+        [
+            ("train", ["-d", "cli.npz", "--kind", "policy", "--bs", "64", "-c", "cli_policy.pt", "-o", "cli_policy2.pt"]),
+        ],
     ]
     took = {}
-    for name, args in runs:
+    for wave in waves:
         t0 = time.monotonic()
-        proc = subprocess.run([sys.executable, "-m", f"bokego_tpu_torch.bin.{name}", *args], cwd=work, env=env,
-                              capture_output=True, text=True, timeout=300)
-        dt = time.monotonic() - t0
-        check(proc.returncode == 0, f"bin.{name} {args} exited {proc.returncode}: {proc.stderr[-2000:]}")
-        took.setdefault(name, []).append(round(dt, 2))
-        log(f"bin.{name} {' '.join(args)}: exit 0 in {dt:.1f} s; last line: {proc.stdout.strip().splitlines()[-1]!r}")
+        procs = [
+            (name, args, subprocess.Popen([sys.executable, "-m", f"bokego_tpu_torch.bin.{name}", *args], cwd=work,
+                                          env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for name, args in wave
+        ]
+        for name, args, proc in procs:
+            out, err = proc.communicate(timeout=300)
+            dt = time.monotonic() - t0
+            check(proc.returncode == 0, f"bin.{name} {args} exited {proc.returncode}: {err[-2000:]}")
+            took.setdefault(name, []).append(round(dt, 2))
+            log(f"bin.{name} {' '.join(args)}: exit 0, {dt:.1f} s into its wave of {len(wave)}; "
+                f"last line: {out.strip().splitlines()[-1]!r}")
     check(os.path.exists(os.path.join(work, "cli_az_ckpt.pt")), "alphazero wrote no resume checkpoint")
     with open(os.path.join(work, "cli_az_iter.txt")) as f:
         check(f.read() == "2", "alphazero --resume did not continue at iteration 2")
@@ -1518,6 +1565,161 @@ def tool_phases(dev, params) -> tuple[dict, dict, dict]:
     return counts.launches, records, figures
 
 
+def _bench_run(dev, batch: int, moves: int, dtype: str) -> tuple[dict, torch.Tensor]:
+    """One in-process bench run (a warm-up move, then ``moves`` timed ones)
+    with the launch counts read around it: 51 K1 launches a move, K2 on
+    eval steps with work, legal moves only.  Returns its figures and the
+    final boards (on the CPU)."""
+    from bokego_tpu_torch import bench
+    from bokego_tpu_torch.config import BENCH_CONFIG
+    from bokego_tpu_torch.ops import rollout
+
+    torch.cuda.synchronize()
+    rollout.reset_launches()
+    out, states, done = bench.run(dev, bench.Settings(batch, moves, BENCH_CONFIG.n_rollouts, BENCH_CONFIG, dtype))
+    launches = dict(rollout.launches)
+    what = f"bench B={batch} {dtype}"
+    check(launches["descend_backprop"] == 51 * (moves + 1), f"{what}: K1 launches {launches}, expected 51 a move")
+    check(launches["write_rows"] > 0, f"{what}: K2 never launched")
+    check(out["value"] > 0 and not bool(states.invalid.any()), f"{what}: {out}")
+    check(int(states.turn.min()) == moves, f"{what}: turns {states.turn.min()}..{states.turn.max()}")
+    ms = 60e3 * batch / out["value"] / moves  # the line's value counts games of ``moves`` moves
+    figures = dict(ms_per_move=ms, games_per_min_80_moves=batch * 60e3 / (80 * ms), launches=launches,
+                   done=int(done.sum()))
+    return figures, states.board.cpu()
+
+
+def bench_phases(dev) -> tuple[dict, dict, dict, dict]:
+    """Phases 32-36, the headline bench, its bf16 and batch variants and the
+    serving-latency and scaling tools; returns the K1/K2 launch counts of
+    the bench path (the first fp32 run of phase 33, B=1024) and of the
+    B=4096 path, the kernel records at B=4096 and the figures."""
+    from bokego_tpu_torch import bench, serving_latency
+    from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG, POLICY_WEIGHTS, VALUE_WEIGHTS
+    from bokego_tpu_torch.models import nets
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.search import mcts
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    figures = {}
+
+    # 32. the headline bench as a process at its full default
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BOKEGO_BENCH_")}
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "bokego_tpu_torch.bench"], capture_output=True, text=True,
+                          timeout=900, env={**env, "PYTHONPATH": here})
+    seconds = time.monotonic() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"bench exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    line = json.loads(lines[0])
+    check(set(line) == {"metric", "value", "unit", "vs_baseline"} and line["value"] > 0
+          and line["vs_baseline"] is None and line["unit"] == "games/min/chip"
+          and f"80 moves, batch {BENCH_BATCH}, fp32, device {torch.cuda.get_device_name(0)}" in line["metric"],
+          f"bench line {lines[0]}")
+    log(f"bench (python -m bokego_tpu_torch.bench): exit 0 in {seconds:.1f} s; its line:")
+    log(f"  {lines[0]}")
+    figures["bench"] = dict(line=line, process_s=seconds)
+
+    # 33. the bf16 route: the evaluator on the card against the CPU, the two
+    # routes, then bench moves in bf16 and fp32 in turns
+    roots = _random_roots(256, 20, seed=33)
+    cpu_nets = {
+        "shipped": {"policy": nets.load_policy(POLICY_WEIGHTS, device="cpu"),
+                    "value": nets.load_value(VALUE_WEIGHTS, device="cpu")},
+        "bench random-init": bench.bench_nets("cpu", "fp32")[0],
+    }
+    ev16, ev32 = mcts.net_evaluator(dtype=torch.bfloat16), mcts.net_evaluator()
+    errors = {}
+    for name, on_cpu in cpu_nets.items():
+        on_gpu = {k: copy.deepcopy(net).to(dev) for k, net in on_cpu.items()}
+        stored = {k: copy.deepcopy(net).to(torch.bfloat16) for k, net in on_gpu.items()}
+        p_cpu, v_cpu = ev16.evaluate(on_cpu, roots)
+        p_gpu, v_gpu = ev16.evaluate(on_gpu, roots.map(lambda x: x.to(dev)))
+        p_st, v_st = ev16.evaluate(stored, roots.map(lambda x: x.to(dev)))
+        p_32, v_32 = ev32.evaluate(on_gpu, roots.map(lambda x: x.to(dev)))
+        err = (float((p_gpu.cpu() - p_cpu).abs().max()), float((v_gpu.cpu() - v_cpu).abs().max()))
+        check(max(err) <= BF16_TOL, f"bf16 evaluator ({name}): GPU vs CPU {err}, tolerance {BF16_TOL}")
+        check(torch.equal(p_st, p_gpu) and torch.equal(v_st, v_gpu),
+              f"bf16 evaluator ({name}): stored bf16 and per-call rounding differ on the card")
+        check(p_gpu.dtype == v_gpu.dtype == torch.float32, f"bf16 evaluator ({name}): {p_gpu.dtype} out")
+        off = (float((p_gpu - p_32).abs().max()), float((v_gpu - v_32).abs().max()))
+        errors[name] = dict(gpu_vs_cpu=err, bf16_vs_fp32=off)
+        log(f"bf16 evaluator ({name} nets, B=256): GPU vs CPU max abs diff probs {err[0]:.3g}, values "
+            f"{err[1]:.3g} (tol {BF16_TOL}); stored bf16 equals per-call rounding bit for bit; bf16 vs fp32 "
+            f"on the card {off[0]:.3g}, {off[1]:.3g}")
+        del on_gpu, stored
+    runs, boards = {"fp32": [], "bf16": []}, {"fp32": [], "bf16": []}
+    for dtype in ("fp32", "bf16", "bf16", "fp32"):
+        run, board = _bench_run(dev, BENCH_BATCH, BENCH_PAIR_MOVES, dtype)
+        runs[dtype].append(run)
+        boards[dtype].append(board)
+    bench_counts = runs["fp32"][0]["launches"]
+
+    def same_games(a, b) -> float:
+        return float((a == b).all(-1).float().mean())
+
+    kept = dict(fp32_vs_bf16=same_games(boards["fp32"][0], boards["bf16"][0]),
+                fp32_vs_fp32=same_games(boards["fp32"][0], boards["fp32"][1]),
+                bf16_vs_bf16=same_games(boards["bf16"][0], boards["bf16"][1]))
+    figures["bf16"] = dict(evaluator=errors, runs=runs, same_final_boards=kept)
+    log(f"bench B={BENCH_BATCH} x {BENCH_PAIR_MOVES} moves in turns (fp32, bf16, bf16, fp32): ms/move fp32 "
+        f"{[round(r['ms_per_move'], 2) for r in runs['fp32']]}, bf16 {[round(r['ms_per_move'], 2) for r in runs['bf16']]}; "
+        f"launches of the first fp32 run {bench_counts} (the warm-up move included); share of games with the "
+        f"same board after {BENCH_PAIR_MOVES} moves: {kept}")
+
+    # 34. the batch variant: 4096 games in process, peak memory, K1/K2 at B=4096
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    big = _bench_run(dev, BIG_BATCH, BIG_MOVES, "fp32")[0]
+    big["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    big["peak_over_live_gib"] = (torch.cuda.max_memory_allocated() - live) / 2**30
+    torch.cuda.empty_cache()
+    roots = _random_roots(BIG_BATCH, 20, seed=34).map(lambda x: x.to(dev))
+    params = bench.bench_nets(dev, "fp32")[0]
+    big_records = check_kernels_at(dev, mcts.net_evaluator(), params, roots, ((BIG_BATCH, BENCH_CONFIG.max_nodes, 200, False),),
+                                   levels=BENCH_CONFIG.kernel_levels, record_at=(BIG_BATCH, BENCH_CONFIG.max_nodes))
+    del roots, params
+    torch.cuda.empty_cache()
+    per_move = {k: v / (BIG_MOVES + 1) for k, v in big["launches"].items()}
+    figures["bench_b4096"] = big
+    log(f"bench B={BIG_BATCH} x {BIG_MOVES} moves fp32: ms/move {big['ms_per_move']:.2f} "
+        f"({big['games_per_min_80_moves']:.1f} games/min/chip for 80 such moves); launches a move {per_move}; "
+        f"peak memory {big['peak_mem_gib']:.2f} GiB (max_memory_allocated), {big['peak_over_live_gib']:.2f} GiB "
+        f"over what earlier phases hold")
+
+    # 35. serving_latency: the default configuration and --forest 8
+    rollout.reset_launches()
+    latency = {}
+    for forest in (1, 8):
+        eng = serving_latency.make_engine(dev, LATENCY_SECONDS, False, forest, 1)
+        res = serving_latency.measure(eng, LATENCY_SECONDS, 1)
+        for path, ((grown, dt),) in res.items():
+            check(grown > 0 and dt > 0, f"serving_latency forest {forest}, {path}: root visits grew by {grown}")
+            latency[f"forest {forest}, {path}"] = dict(rollouts_per_s=grown / dt, visits=grown, seconds=dt)
+            log(f"serving_latency (forest {forest}, --time {LATENCY_SECONDS}): {path}: {grown / dt:,.0f} rollouts/s "
+                f"(root visits grew by {grown:.0f} in {dt:.3f} s)")
+        del eng
+    check(not any(rollout.launches.values()), f"serving_latency's default search launched a kernel: {rollout.launches}")
+    figures["serving_latency"] = latency
+
+    # 36. parallel.scaling over 2 gloo ranks sharing cuda:0
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bokego_tpu_torch.parallel.scaling", "2", str(SCALING_K), "--device", "cuda:0",
+         "--backend", "gloo"], capture_output=True, text=True, timeout=600, env={**env, "PYTHONPATH": here},
+    )
+    seconds = time.monotonic() - t0
+    check(proc.returncode == 0 and "actions IDENTICAL, scores IDENTICAL" in proc.stdout,
+          f"parallel.scaling exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    for text in proc.stdout.strip().splitlines():
+        log(f"  {text}")
+    figures["scaling"] = dict(output=proc.stdout.strip().splitlines(), process_s=seconds)
+    log(f"parallel.scaling 2 {SCALING_K} (gloo, 2 ranks on cuda:0): exit 0 in {seconds:.1f} s, actions and scores IDENTICAL")
+    return bench_counts, big["launches"], big_records, figures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1735,6 +1937,7 @@ def main() -> int:
     dp_counts, dp_records, dp_figures = dp_phases(dev, params)
     fid_counts, sm_counts, fid_records, match_figures = match_phases(dev)
     mfu_counts, mfu_records, tool_figures = tool_phases(dev, params)
+    bench_counts, big_counts, big_records, bench_figures = bench_phases(dev)
 
     log(f"total: {time.monotonic() - t_start:.1f} s")
 
@@ -1752,6 +1955,7 @@ def main() -> int:
             ("selfplay", counts, records), ("gtp_engine_fast", serve_counts, records_serving),
             ("selfplay_sharded", dp_counts, dp_records), ("fastmode_fidelity", fid_counts, fid_records),
             ("serving_match", sm_counts, records_serving), ("mfu_report", mfu_counts, mfu_records),
+            ("bench", bench_counts, records), ("bench_b4096", big_counts, big_records),
         )
         for name in ("descend_backprop", "write_rows")
     ]
@@ -1759,6 +1963,7 @@ def main() -> int:
     log(json.dumps({"data_parallel": dp_figures}))
     log(json.dumps({"matches": match_figures}))
     log(json.dumps({"tools": tool_figures}))
+    log(json.dumps({"bench": bench_figures}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,
