@@ -1,10 +1,19 @@
-"""GTP subprocess client and engine-vs-engine match harness (copy of
-``bokego_tpu/gtp/process.py``).
+"""GTP subprocess client and engine-vs-engine match harness (counterpart of
+``bokego_tpu/gtp/process.py``; ``tests/test_torch_process.py`` holds the two
+to the same results and SGF bytes).
 
 Run any GTP engine under a subprocess, play two engines to double-pass,
 score, write the SGF.  A neutral referee replays every generated move on a
 host-side board (``bokego_tpu_torch.native``) and scores the final position
 with dead-group judgment.
+
+Two differences from the JAX harness, both deliberate: the referee is the
+port's own ``native`` binding, and the match goes on without one only when
+that binding raises ``native.NativeUnavailable`` (the JAX harness catches
+every ``Exception`` there), so a referee that fails for another reason is
+not hidden; and without a referee no move can be found impossible, so the
+score is always black's ``final_score`` (the JAX harness keeps a ``"?"``
+branch for a truncated game that it cannot reach).
 """
 
 from __future__ import annotations
@@ -188,9 +197,8 @@ def gtp_match(
                     f"B+{tt:g}" if tt > 0 else f"W+{-tt:g}" if tt < 0 else "0"
                 )
             else:
-                # no referee and a truncated game's engines have desynced
-                # boards — only an intact game can ask an engine
-                score = black.final_score() if illegal_by is None else "?"
+                # only a referee finds a move impossible: the game is intact
+                score = black.final_score()
         if sgf_path:
             sgf.write_sgf(
                 moves, sgf_path, komi=komi, black=black.name, white=white.name,

@@ -11,6 +11,13 @@ Inputs are NHWC ``(B, 9, 9, 27)`` like the JAX nets; the modules permute to
 NCHW inside.  Convolutions go to ``torch.nn.functional.conv2d`` (the JAX
 package leaves them to XLA, outside any Pallas kernel).
 
+A fresh module draws from Flax's default initialisers, as the JAX nets'
+``init`` does: every convolution and dense kernel from ``lecun_normal``
+(a normal of variance ``1 / fan_in`` cut at two of its pre-cut standard
+deviations), every bias and untied bias zero, BatchNorm scale 1, bias 0,
+mean 0, variance 1.  The draws come from torch's generator, so they are not
+the JAX draws; their distributions are the same.
+
 BatchNorm in ``train()`` mode follows Flax's ``nn.BatchNorm``, not torch's:
 it normalises by the biased batch variance and folds that same biased
 variance into ``running_var`` (torch folds in the unbiased one, a factor
@@ -90,7 +97,29 @@ class BatchNorm1d(_FlaxStatsBatchNorm, nn.BatchNorm1d):
     pass
 
 
-class Conv2d(nn.Conv2d):
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal cut at +-2
+
+
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """Flax's ``lecun_normal()`` in place: ``variance_scaling(1.0, "fan_in",
+    "truncated_normal")``, fan_in the product of every dimension but the
+    output one (``in_channels * kh * kw`` for a convolution)."""
+    std = (1.0 / weight[0].numel()) ** 0.5 / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std)
+
+
+class _FlaxInit:
+    """``reset_parameters`` with Flax's defaults: a ``lecun_normal`` kernel
+    and a zero bias."""
+
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class Conv2d(_FlaxInit, nn.Conv2d):
     """``nn.Conv2d`` in its input's dtype (Flax's ``nn.Conv(dtype=x.dtype)``):
     float32 in, the stock layer (on bf16-rounded weights when the module is
     stored in bf16); bf16 in, the convolution in bf16, its output rounded,
@@ -103,7 +132,7 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, w, None) + b.view(-1, 1, 1)
 
 
-class Linear(nn.Linear):
+class Linear(_FlaxInit, nn.Linear):
     """``nn.Linear`` in its input's dtype (Flax's ``nn.Dense(dtype=x.dtype)``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -118,7 +147,7 @@ class UntiedBiasConv(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1, 1))
         self.bias = nn.Parameter(torch.zeros(out_channels, size, size))
-        nn.init.kaiming_uniform_(self.weight, a=5**0.5)
+        lecun_normal_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return nn.functional.conv2d(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
@@ -198,7 +227,7 @@ class PolicyNetV2(nn.Module):
         layers: list[nn.Module] = []
         in_ch = 27
         for width, k in zip([64] + [128] * 5, [5] + [3] * 5):
-            layers += [nn.Conv2d(in_ch, width, k, padding=k // 2), nn.ReLU()]
+            layers += [Conv2d(in_ch, width, k, padding=k // 2), nn.ReLU()]
             in_ch = width
         layers.append(UntiedBiasConv(in_ch, 1))
         self.conv = nn.Sequential(*layers)

@@ -39,7 +39,16 @@ Phases (any failure exits non-zero; nothing is caught):
     the lower action first among equal visits, as ``lax.top_k`` orders
     them), at k=3 on a searched and on a fresh root and at k=81;
 10. the engine as a process: ``python -m bokego_tpu_torch.cli`` through
-    ``GTPProcess`` for a few moves at ``-r 64``, then one move at ``-t 1``;
+    ``GTPProcess`` for a few moves at ``-r 64 --fast --forest 8``; then
+    ``gtp_match`` between two engine processes on the card, black ``-r 64
+    --fast --forest 8`` (K1/K2 at B=8, levels=8, in a subprocess, where the
+    launch counts cannot be read) against white at ``-t 0.5``, PIPE_MOVES
+    moves with the native referee: the SGF reads back, every move legal, a
+    result and no forfeit or truncation; the match's seconds, each side's
+    s/move and each process's start-up are printed; then the count-mode pair
+    (``-r 64`` against ``-r 64 --fast --forest 8``) twice, side by side,
+    printing whether the two SGFs are equal (not gated: cuDNN's choice of
+    algorithm in another process is no contract);
 11. leaf-parallel search without simulations, GPU against CPU, deterministic
     evaluators (plain and fused evaluation), K = 1, 4, 8 at B=8: equal trees
     and chosen actions, and K = 1 equal to ``run_search``;
@@ -172,19 +181,25 @@ import dataclasses
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
 from bokego_tpu_torch.mfu_report import bound_ms, k1_work
 
 MOVES = 20  # self-play moves of the self-play path
 SERVE_ROLLOUTS = 400  # rollouts per generated move of the served sessions
 SERVE_FOREST = 8  # trees of the --fast session
 ANALYZE_TICKS = 4  # analyze ticks held against the host's order, per stream
+PIPE_MOVES = 16  # phase 10: moves of each gtp_match between two engine processes
+# phase 10's engine process: the CLI with the shipped nets, flags appended
+_ENGINE = f"{sys.executable} -m bokego_tpu_torch.cli --no-ponder -p {POLICY_WEIGHTS} -v {VALUE_WEIGHTS}"
 SIM_ROLLOUTS = 16  # rollouts per generated move of the --simulate session: every
 # rollout plays its leaf to the end of the game (up to 82 plies, each a policy
 # forward and a host read), about 1 s a rollout on an H100 (PERF.md)
@@ -203,7 +218,8 @@ FIDELITY_GAMES, FIDELITY_ROLLOUTS = 8, 64  # M3: the fidelity match cut to 8 gam
 MATCH_GAMES, MATCH_SECONDS, MATCH_OPENING = 2, 0.1, 6  # M4: timed serving games
 SIM_BATCH, SIM_PLIES = 256, 40  # phase 31: sim_throughput's batch and midgame start, as the JAX tool's
 SIM_TOOL_ROLLOUTS, SIM_RUNS = 8, 1  # phase 31: cut from 64 rollouts and 3 timed runs
-BENCH_PAIR_MOVES = 20  # phase 33: moves of each paired fp32 / bf16 bench run at B=1024
+BENCH_PAIR_MOVES = 12  # phase 33: moves of each paired fp32 / bf16 bench run at B=1024 (cut from 20
+# to pay for phase 10's matches)
 BIG_BATCH, BIG_MOVES = 4096, 8  # phase 34: the batch variant (BASELINE.json config 4's 4096 games)
 BF16_TOL = 1e-4  # phase 33: the bf16 evaluator on the card against the CPU (ATOL_BF16 of tests/test_torch_bench.py)
 LATENCY_SECONDS = 1.0  # phase 35: serving_latency's --time, one trial a path
@@ -838,35 +854,105 @@ def serve_search_mode(dev, params, flags: list[str], moves: int) -> None:
     check(rollout.launches == {"descend_backprop": 0, "write_rows": 0}, f"{name}: kernel launches {rollout.launches}")
 
 
-def serve_process() -> None:
-    """Phase 10: the engine as a subprocess, one process at a time."""
-    from bokego_tpu_torch import native
-    from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
-    from bokego_tpu_torch.coords import squash
-    from bokego_tpu_torch.gtp.process import GTPProcess
+def _timed_match(black_flags: str, white_flags: str, path: str) -> tuple[bool, float, list]:
+    """``gtp_match`` of two engine processes on the card (``python -m
+    bokego_tpu_torch.cli`` with the shipped nets) over PIPE_MOVES moves, with
+    the native referee; returns whether black won, the match's seconds and
+    both processes, each timed from its start to its first reply
+    (``start_s``) and per ``genmove`` (``move_s``).  It swaps the harness's
+    ``GTPProcess`` for a timed one while it runs, so no other match may run
+    beside it."""
+    from bokego_tpu_torch.gtp import process
 
-    base = f"{sys.executable} -m bokego_tpu_torch.cli --no-ponder -p {POLICY_WEIGHTS} -v {VALUE_WEIGHTS}"
-    for label, flags, moves in (("count", "-r 64 --fast --forest 8", 4), ("timed", "-t 1", 1)):
+    procs = []
+
+    class Timed(process.GTPProcess):
+        def __init__(self, label, cmd, verbose=False):
+            t0 = time.monotonic()
+            super().__init__(label, cmd, verbose)
+            self.start_s, self.move_s = time.monotonic() - t0, []
+            procs.append(self)
+
+        def genmove(self, color):
+            t0 = time.monotonic()
+            vertex = super().genmove(color)
+            self.move_s.append(time.monotonic() - t0)
+            return vertex
+
+    plain, process.GTPProcess = process.GTPProcess, Timed
+    try:
         t0 = time.monotonic()
-        proc = GTPProcess(label, f"{base} {flags}")
-        try:
-            start_s = time.monotonic() - t0
-            check(proc.name == "bokego-tpu-torch", f"process name {proc.name!r}")
-            proc.boardsize(9), proc.komi(5.5), proc.clear_board()
-            referee = native.NativeBoard(5.5)
-            took = []
-            for i in range(moves):
-                t0 = time.monotonic()
-                vertex = proc.genmove("black" if i % 2 == 0 else "white").upper()
-                took.append(round(time.monotonic() - t0, 3))
-                check(re.fullmatch(r"[A-HJ][1-9]|PASS", vertex) is not None, f"process genmove gave {vertex!r}")
-                referee.play(squash(vertex))
-            check(re.fullmatch(r"[BW]\+\d+\.\d|0", proc.final_score()) is not None, "process final_score")
-            check("X" in proc.showboard(), "process showboard")
-        finally:
-            proc.close()
-        check(proc.subproc.returncode == 0, f"engine process exited with {proc.subproc.returncode}")
-        log(f"engine process ({flags}): started in {start_s:.1f} s, {moves} legal moves in {took} s each, exit code 0")
+        won = process.gtp_match(f"{_ENGINE} {black_flags}", f"{_ENGINE} {white_flags}", sgf_path=path, max_moves=PIPE_MOVES)
+        took = time.monotonic() - t0
+    finally:
+        process.GTPProcess = plain
+    for proc in procs:
+        check(proc.subproc.returncode == 0, f"{proc.id} engine process exited with {proc.subproc.returncode}")
+    return won, took, procs
+
+
+def serve_process(work: str) -> None:
+    """Phase 10: the engine as a subprocess: one process through
+    ``GTPProcess``, then ``gtp_match`` between two engine processes on the
+    card, and a count-mode pair played twice."""
+    from bokego_tpu_torch import native, sgf
+    from bokego_tpu_torch.coords import squash
+    from bokego_tpu_torch.gtp.process import GTPProcess, gtp_match
+
+    flags, moves = "-r 64 --fast --forest 8", 4
+    t0 = time.monotonic()
+    proc = GTPProcess("count", f"{_ENGINE} {flags}")
+    try:
+        start_s = time.monotonic() - t0
+        check(proc.name == "bokego-tpu-torch", f"process name {proc.name!r}")
+        proc.boardsize(9), proc.komi(5.5), proc.clear_board()
+        referee = native.NativeBoard(5.5)
+        took = []
+        for i in range(moves):
+            t0 = time.monotonic()
+            vertex = proc.genmove("black" if i % 2 == 0 else "white").upper()
+            took.append(round(time.monotonic() - t0, 3))
+            check(re.fullmatch(r"[A-HJ][1-9]|PASS", vertex) is not None, f"process genmove gave {vertex!r}")
+            referee.play(squash(vertex))
+        check(re.fullmatch(r"[BW]\+\d+\.\d|0", proc.final_score()) is not None, "process final_score")
+        check("X" in proc.showboard(), "process showboard")
+    finally:
+        proc.close()
+    check(proc.subproc.returncode == 0, f"engine process exited with {proc.subproc.returncode}")
+    log(f"engine process ({flags}): started in {start_s:.1f} s, {moves} legal moves in {took} s each, exit code 0")
+
+    # The match: the --fast engine (K1/K2 at B=8, levels=8) as black against
+    # the timed default engine, both processes on the card, with the native
+    # referee the session above played on.
+    path = os.path.join(work, "match.sgf")
+    won, took, procs = _timed_match("-r 64 --fast --forest 8", "-t 0.5", path)
+    text = open(path).read()
+    played, result = sgf.read_moves(path), sgf.read_result(path)
+    check(0 < len(played) <= PIPE_MOVES, f"pipe match: {len(played)} moves read back")
+    native.replay(played)  # raises on an illegal move
+    check(result is not None and re.fullmatch(r"[BW]\+[\dR.]+|0", result) is not None, f"pipe match result {result!r}")
+    check("F" not in result and "truncated" not in text, f"pipe match truncated: {result!r}")
+    check(won == result.startswith("B"), f"pipe match returned {won} for {result!r}")
+    sides = "; ".join(
+        f"{p.id} started in {p.start_s:.2f} s, {statistics.mean(p.move_s):.3f} s/move over {len(p.move_s)}"
+        for p in procs
+    )
+    log(f"pipe match (black -r 64 --fast --forest 8, white -t 0.5): {len(played)} moves, {result}, {took:.2f} s; {sides}")
+
+    # The same count-mode pair twice, side by side: equal SGFs are not a
+    # contract (cuDNN may choose other algorithms in another process), so
+    # only printed.
+    paths = [os.path.join(work, f"pair{i}.sgf") for i in range(2)]
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(2) as pool:
+        games = [pool.submit(gtp_match, f"{_ENGINE} -r 64", f"{_ENGINE} -r 64 --fast --forest 8", sgf_path=path,
+                             max_moves=PIPE_MOVES) for path in paths]
+        for game in games:
+            game.result()
+    texts = [open(path).read() for path in paths]
+    log(f"count pair (black -r 64, white -r 64 --fast --forest 8), two games side by side in "
+        f"{time.monotonic() - t0:.2f} s: {[sgf.read_result(path) for path in paths]}; the two SGFs are "
+        f"{'equal' if texts[0] == texts[1] else 'NOT equal'}")
 
 
 def serving_phases(dev, roots):
@@ -888,7 +974,8 @@ def serving_phases(dev, roots):
     serve_search_mode(dev, params, ["-r", str(SIM_ROLLOUTS), "--simulate"], moves=2)
     del params
     torch.cuda.empty_cache()
-    serve_process()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gtp_") as tmp:
+        serve_process(tmp)
     return records, fast_counts
 
 

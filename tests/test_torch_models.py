@@ -14,6 +14,7 @@ import jax
 
 from bokego_tpu import features as jfeatures
 from bokego_tpu.config import SearchConfig as JConfig
+from bokego_tpu.env import state as jst
 from bokego_tpu.models import convert as jconvert
 from bokego_tpu.models import inference as jinference
 from bokego_tpu.models import nets as jnets
@@ -241,3 +242,69 @@ def test_policy_v2_matches_jax():
         jax.tree_util.tree_leaves_with_path(back), jax.tree_util.tree_leaves_with_path(dict(variables["params"]))
     ):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=str(path))
+
+
+def _pooled_inits(kind: str, seeds: int):
+    """State dicts of ``seeds`` fresh 128-channel nets of ``kind``, seeds
+    ``0 .. seeds-1``: the port's (``init_policy`` / ``init_value``, or
+    ``PolicyNetV2()`` under ``torch.manual_seed``) and, but for ``v2``,
+    the JAX package's init in the port's key layout."""
+    if kind == "v2":
+        port = []
+        with torch.random.fork_rng(devices=[]):
+            for s in range(seeds):
+                torch.manual_seed(s)
+                port.append(tnets.PolicyNetV2().state_dict())
+        return port, None
+    tinit = tnets.init_policy if kind == "policy" else tnets.init_value
+    port = [tinit(128, seed=s, device="cpu").state_dict() for s in range(seeds)]
+    jinit = jax.jit(jax.vmap(jnets.init_policy if kind == "policy" else jnets.init_value))
+    ref = []
+    for lo in range(0, seeds, 16):
+        batch = jax.tree.map(np.asarray, jinit(jax.numpy.stack([jax.random.PRNGKey(s) for s in range(lo, lo + 16)])))
+        ref += [tconvert.from_flax(jax.tree.map(lambda x, i=i: x[i], batch)) for i in range(16)]
+    return port, ref[:seeds]
+
+
+@pytest.mark.parametrize("kind, seeds", [("policy", 32), ("value", 64), ("v2", 32)])
+def test_random_init_draws_as_flax(kind, seeds):
+    """A fresh net draws from Flax's default initialisers, as the JAX nets'
+    ``init`` does: each kernel's sample std within 3 % of sqrt(1 / fan_in)
+    and of the same layer of the JAX init (``PolicyNetV2``: the former
+    alone), no entry beyond the cut at 2 sigma, every bias and untied bias
+    exactly 0, BatchNorm at scale 1, bias 0, mean 0, variance 1.  Each
+    compared sample holds at least 4096 entries: a tensor smaller than that
+    (the 1x1 heads, ``lin2``) is pooled over as many seeds as that takes,
+    16 or more."""
+    port, ref = _pooled_inits(kind, seeds)
+    kernels = [k for k, w in port[0].items() if k.endswith("weight") and w.dim() >= 2]
+    assert len(kernels) == {"policy": 8, "value": 10, "v2": 7}[kind]
+    for key in kernels:
+        fan_in = port[0][key][0].numel()
+        want = (1.0 / fan_in) ** 0.5
+        n = 1 if port[0][key].numel() >= 4096 else max(16, -(-4096 // port[0][key].numel()))
+        assert n <= seeds
+        got = torch.cat([sd[key].flatten() for sd in port[:n]])
+        assert abs(float(got.std()) / want - 1.0) < 0.03, (key, float(got.std()) / want)
+        assert float(got.abs().max()) <= 2.0 * want / 0.87962566103423978, key
+        if ref is not None:
+            jax_std = float(torch.cat([torch.as_tensor(np.asarray(sd[key])).flatten() for sd in ref[:n]]).std())
+            assert abs(float(got.std()) / jax_std - 1.0) < 0.03, (key, float(got.std()) / jax_std)
+    for key, t in port[0].items():
+        if key in kernels or key.endswith("num_batches_tracked"):
+            continue
+        one = key.endswith("running_var") or (key.endswith("weight") and t.dim() == 1)
+        assert torch.equal(t, torch.full_like(t, 1.0 if one else 0.0)), key
+
+
+def test_random_init_logits_spread_as_jax():
+    """The empty-board policy logits of the port's ``init_policy(seed=s)``
+    spread as the JAX ``init_policy(PRNGKey(s))``'s: the std over the 81
+    points, averaged over seeds 0-3, within 0.5-2x of the JAX init's."""
+    fts = np.array(jfeatures.features_batch(jst.new_game_batch(1)))
+    port = np.mean([
+        float(tnets.init_policy(128, seed=s, device="cpu")(torch.from_numpy(fts)).detach().std()) for s in range(4)
+    ])
+    logits = jax.jit(lambda key: jnets.PolicyNet().apply(jnets.init_policy(key), fts, train=False))
+    ref = np.mean([float(np.std(np.asarray(logits(jax.random.PRNGKey(s))), ddof=1)) for s in range(4)])
+    assert 0.5 < port / ref < 2.0, (port, ref)
