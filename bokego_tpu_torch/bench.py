@@ -9,10 +9,12 @@
 ``bench.py``'s protocol: ``config.BENCH_CONFIG`` (``expand_thresh=100``,
 ``no_sim``, ``max_nodes=512``, the rollout kernels K1 and K2 with
 ``eval_every=8``, ``kernel_levels=6``) at ``BENCH_BATCH`` games, or
-``BOKEGO_BENCH_BATCH`` when set; seeded random-init nets
-(``init_policy(seed=0)``, ``init_value(seed=1)``); one move
-(:func:`one_move`) as warm-up, then ``MOVES`` moves from the new games,
-``torch.cuda.synchronize()`` and the host clock.  ``BOKEGO_BENCH_DTYPE=bf16``
+``BOKEGO_BENCH_BATCH`` when set; the JAX bench's random-init nets,
+``init_policy(PRNGKey(0))`` and ``init_value(PRNGKey(1))``, read from
+``data/weights/jax_init_policy_key0.pt`` and ``jax_init_value_key1.pt``
+(``config.BENCH_POLICY_WEIGHTS``, ``BENCH_VALUE_WEIGHTS``; a missing file
+raises); one move (:func:`one_move`) as warm-up, then ``MOVES`` moves from
+the new games, ``torch.cuda.synchronize()`` and the host clock.  ``BOKEGO_BENCH_DTYPE=bf16``
 stores both nets in bf16 once and evaluates with
 ``net_evaluator(dtype=torch.bfloat16)``: only the stem convolution computes
 in bf16 (``models/nets.py``), as in the JAX package.
@@ -38,7 +40,9 @@ import time
 import torch
 
 from bokego_tpu_torch.bin import add_device_flag, device_from
-from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG, SearchConfig
+from bokego_tpu_torch.config import (
+    BENCH_BATCH, BENCH_CONFIG, BENCH_POLICY_WEIGHTS, BENCH_VALUE_WEIGHTS, SearchConfig,
+)
 from bokego_tpu_torch.coords import PASS_ACTION
 from bokego_tpu_torch.device import synchronize
 from bokego_tpu_torch.env import rules, state as st
@@ -78,9 +82,12 @@ def settings(device: torch.device, environ=os.environ) -> Settings:
 
 
 def bench_nets(device, dtype: str) -> tuple[dict, mcts.Evaluator]:
-    """The bench's seeded random-init nets and their evaluator; for bf16
-    the nets are stored in bf16 once."""
-    params = {"policy": nets.init_policy(seed=0, device=device), "value": nets.init_value(seed=1, device=device)}
+    """The JAX bench's random-init nets, read from their files, and their
+    evaluator; for bf16 the nets are stored in bf16 once."""
+    params = {
+        "policy": nets.load_policy(BENCH_POLICY_WEIGHTS, device=device),
+        "value": nets.load_value(BENCH_VALUE_WEIGHTS, device=device),
+    }
     if DTYPES[dtype] is not None:
         params = {k: net.to(DTYPES[dtype]) for k, net in params.items()}
     return params, mcts.net_evaluator(has_value=True, dtype=DTYPES[dtype])
@@ -95,11 +102,12 @@ def one_move(states: GoState, done: torch.Tensor, ev: mcts.Evaluator, params, cf
     return nxt, done | rules.is_terminal(nxt, cfg.max_turns)
 
 
-def run(device: torch.device, s: Settings) -> tuple[dict, GoState, torch.Tensor]:
+def run(device: torch.device, s: Settings, nets_ev=None) -> tuple[dict, GoState, torch.Tensor]:
     """One bench run on ``device``: the warm-up move, then ``s.moves`` timed
-    moves from the new games.  Returns the JSON record, the final states
-    and the done flags."""
-    params, ev = bench_nets(device, s.dtype)
+    moves from the new games, with ``nets_ev`` (nets and evaluator; default
+    :func:`bench_nets`).  Returns the JSON record, the final states and the
+    done flags."""
+    params, ev = nets_ev or bench_nets(device, s.dtype)
     states = st.new_game_batch(s.batch, device=device)
     done = torch.zeros(s.batch, dtype=torch.bool, device=device)
     one_move(states, done, ev, params, s.cfg, s.rollouts)  # warm-up (cuDNN's choice, kernel build)

@@ -85,3 +85,8 @@ BENCH_BATCH = 1024
 _WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "weights")
 VALUE_WEIGHTS = os.path.join(_WEIGHTS, "value_r2.pt")
 POLICY_WEIGHTS = os.path.join(_WEIGHTS, "policy_17.pt")
+# The JAX bench's random-init nets, init_policy(PRNGKey(0)) and
+# init_value(PRNGKey(1)), exported by tools/export_policy_torch.py: the nets
+# of the bench, mfu_report, measure's self-play split and parallel.scaling.
+BENCH_POLICY_WEIGHTS = os.path.join(_WEIGHTS, "jax_init_policy_key0.pt")
+BENCH_VALUE_WEIGHTS = os.path.join(_WEIGHTS, "jax_init_value_key1.pt")

@@ -4,8 +4,9 @@ port's two main paths).
     python -m bokego_tpu_torch.measure
 
 Runs the bench configuration (B=1024, 400 rollouts/move, eval_every=8,
-kernel_levels=6, expand_thresh=100, max_nodes=512) with a seeded random-init
-policy and ``data/weights/value_r2.pt``, and prints:
+kernel_levels=6, expand_thresh=100, max_nodes=512) with the bench's nets
+(``bench.bench_nets``: the JAX bench's ``init_policy(PRNGKey(0))`` and
+``init_value(PRNGKey(1))``), and prints:
 
 * for three moves played as the search plays them (``run_search``'s groups,
   one kernel launch per run of rollouts up to the next eval step), the
@@ -50,6 +51,7 @@ import time
 
 import torch
 
+from bokego_tpu_torch import bench
 from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG as CFG, POLICY_WEIGHTS, VALUE_WEIGHTS
 from bokego_tpu_torch.device import fp32_only
 from bokego_tpu_torch.env import rules, state as st
@@ -270,8 +272,7 @@ def training_moves(dev, params) -> None:
 def main():
     dev = torch.device("cuda")
     fp32_only()
-    params = {"policy": nets.init_policy(128, seed=0, device=dev), "value": nets.load_value(VALUE_WEIGHTS, device=dev)}
-    ev = mcts.net_evaluator()
+    params, ev = bench.bench_nets(dev, "fp32")
     states = st.new_game_batch(BENCH_BATCH, device=dev)
     print(f"{torch.cuda.get_device_name(0)}; batch {BENCH_BATCH}")
     print(card_line())
@@ -287,7 +288,7 @@ def main():
         rules.step(states, actions)
 
     print_profile("self-play move", selfplay_move)
-    served = {"policy": nets.load_policy(POLICY_WEIGHTS, device=dev), "value": params["value"]}
+    served = {"policy": nets.load_policy(POLICY_WEIGHTS, device=dev), "value": nets.load_value(VALUE_WEIGHTS, device=dev)}
     for flags in (
         ["-r", "400"],
         ["-r", "400", "--fast", "--forest", "8"],

@@ -5,8 +5,9 @@ on the GPU (the port's counterpart of ``tools/mfu_report.py``).
         [--peak-tflops-f32 67] [--peak-tflops-tf32 495] [--peak-gbs 3350] [--device cuda]
 
 Runs the bench configuration (``config.BENCH_CONFIG`` at ``--rollouts`` and
-``--eval-every``; a seeded random-init 128-channel policy and the shipped
-``data/weights/value_r2.pt``) and prints, under the card's name and power
+``--eval-every``; the bench's nets, the JAX tool's random-init
+``init_policy(PRNGKey(0))`` and ``init_value(PRNGKey(1))`` read through
+``bench.bench_nets``) and prints, under the card's name and power
 limit, one table row for each of: the batched policy + value forward (CUDA
 events), ``init_trees``, the K1 launches of a move, its eval phases split
 into the net forwards and the rest (rules, features, expansion with K2),
@@ -56,8 +57,9 @@ import dataclasses
 
 import torch
 
+from bokego_tpu_torch import bench
 from bokego_tpu_torch.bin import add_device_flag, device_from
-from bokego_tpu_torch.config import BENCH_CONFIG, VALUE_WEIGHTS
+from bokego_tpu_torch.config import BENCH_CONFIG
 from bokego_tpu_torch.coords import NN
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.features import features_batch
@@ -358,11 +360,7 @@ def report(dev, batch: int, rollouts: int, eval_every: int, peaks: Peaks = Peaks
 
     on_card = dev.type == "cuda"
     cfg = dataclasses.replace(BENCH_CONFIG, n_rollouts=rollouts, eval_every=eval_every)
-    params = {
-        "policy": nets.init_policy(CHANNELS, seed=0, device=dev),
-        "value": nets.load_value(VALUE_WEIGHTS, device=dev),
-    }
-    ev = mcts.net_evaluator()
+    params, ev = bench.bench_nets(dev, "fp32")
     model = eval_model(rollouts, eval_every)
     groups = mcts.rollout_groups(rollouts, eval_every)
     if on_card:

@@ -7,8 +7,9 @@ counterpart of ``tools/measure_scaling.py``).
 
 The JAX tool's protocol: ``selfplay`` at K games on one device, then
 ``selfplay_sharded`` at n x K games over n ranks for n = 2, 4 and N (those
-not above N; the JAX tool assumes N >= 4), each with seeded random-init
-nets (``init_policy(seed=0)``, ``init_value(seed=1)``) at
+not above N; the JAX tool assumes N >= 4), each with the JAX tool's
+random-init nets (``init_policy(PRNGKey(0))``, ``init_value(PRNGKey(1))``,
+read through ``bench.bench_nets``) at
 ``SearchConfig(expand_thresh=2, no_sim=True, max_nodes=128,
 max_turns=16)``, 8 moves of 8 rollouts, one warm run and one timed run
 (synchronised host clock; ranks meet at a barrier before it).  Then
@@ -34,12 +35,11 @@ import time
 import torch
 import torch.distributed as dist
 
+from bokego_tpu_torch import bench
 from bokego_tpu_torch.config import SearchConfig
 from bokego_tpu_torch.device import fp32_only, synchronize
-from bokego_tpu_torch.models import nets
 from bokego_tpu_torch.parallel import mesh as mesh_lib
 from bokego_tpu_torch.parallel.selfplay import selfplay, selfplay_sharded
-from bokego_tpu_torch.search import mcts
 
 CFG = SearchConfig(expand_thresh=2, no_sim=True, max_nodes=128, max_turns=16)
 N_MOVES, N_ROLLOUTS = 8, 8
@@ -64,10 +64,9 @@ def _play(params, ev, batch: int, device, mesh=None):
 
 
 def _setup(device):
-    """fp32 nets and evaluator on ``device``."""
+    """The bench's nets and evaluator on ``device``, in fp32."""
     fp32_only()
-    params = {"policy": nets.init_policy(seed=0, device=device), "value": nets.init_value(seed=1, device=device)}
-    return params, mcts.net_evaluator(has_value=True)
+    return bench.bench_nets(device, "fp32")
 
 
 def _rank(mesh: mesh_lib.Mesh, batch: int, path: str) -> None:

@@ -15,9 +15,12 @@ Phases (any failure exits non-zero; nothing is caught):
  5. a small self-play with a deterministic evaluator, GPU against CPU;
  6. the self-play path: ``selfplay`` at the bench configuration (B=1024, 400
     rollouts/move, eval_every=8, kernel_levels=6, expand_thresh=100,
-    max_nodes=512) with a seeded random-init 128-channel policy and the
-    shipped ``data/weights/value_r2.pt`` for MOVES moves, launch counts read
-    around it (51 K1 launches and 400 K1 rollouts a move);
+    max_nodes=512) with the bench's nets (``bench.bench_nets``: the JAX
+    bench's ``init_policy(PRNGKey(0))`` and ``init_value(PRNGKey(1))``,
+    ``data/weights/jax_init_{policy_key0,value_key1}.pt``; phases 2-3 warm
+    their trees with them, and a missing file fails the run) for MOVES
+    moves, launch counts read around it (51 K1 launches and 400 K1 rollouts
+    a move);
  7. K1 and K2 at the serving path's shapes against their plain versions, bit
     for bit: B=1 and B=8 at Nmax=512, levels=8, on trees warmed by the port's
     own search with the shipped nets; B=2 and B=34 at Nmax=65536 (a pool of
@@ -129,8 +132,9 @@ Phases (any failure exits non-zero; nothing is caught):
     on which no tree has work skips its forward, as in the JAX package),
     one K2 launch for each, FLOP counts equal to
     ``net_flops`` and the nominal one to ``torch.utils.flop_counter``'s on
-    the card, the convolution kernels named; then K1 and K2 against their
-    plain versions at B=1024, Nmax=512, levels=6;
+    the card, the convolution kernels named, the bench's weight files named;
+    then K1 and K2 against their plain versions at B=1024, Nmax=512,
+    levels=6;
 31. batched simulation throughput (``bokego_tpu_torch.sim_throughput``) at
     B=SIM_BATCH from ply SIM_PLIES, cut to SIM_TOOL_ROLLOUTS rollouts and
     SIM_RUNS timed run: no kernel launch, every root's visits grown by
@@ -139,25 +143,28 @@ Phases (any failure exits non-zero; nothing is caught):
 32. the headline bench, ``python -m bokego_tpu_torch.bench``, as a process
     at its full default (B=1024, 80 moves of 400 rollouts, fp32): exit 0 and
     one JSON line with ``bench.py``'s keys, a positive value and
-    ``vs_baseline`` null, printed;
+    ``vs_baseline`` null, printed beside the weight files it read;
 33. the bf16 route: ``net_evaluator(dtype=torch.bfloat16)`` on the card
     against the CPU at B=256 positions of seeded random games, with the
     shipped nets and with the bench's random-init nets, within BF16_TOL on
     probabilities and values; nets stored in bf16 give the bits of the
     per-call rounding; then BENCH_PAIR_MOVES bench moves at B=1024 in turns,
     fp32, bf16, bf16, fp32 (``bench.run`` in process, launch counts read
-    around each run: 51 K1 launches a move), ms/move printed, and the share
+    around each run: 51 K1 launches a move; its forwards counted by
+    ``mfu_report.counting``), ms/move and forwards a move printed, and the share
     of games with the same board after those moves, fp32 against bf16 and
     each against its repeat;
 34. the batch variant: the bench at B=BIG_BATCH for BIG_MOVES moves in
-    process, its K1 and K2 launches a move and ``max_memory_allocated``;
+    process (the bench's weight files named), its K1 and K2 launches and
+    forwards a move and ``max_memory_allocated``;
     then K1 and K2 against their plain versions at B=BIG_BATCH, Nmax=512,
     levels=6, bit for bit, timed;
 35. ``serving_latency`` at ``--time LATENCY_SECONDS``, one trial, in the
     default configuration and with a forest of 8: root visits grew on both
     paths, no kernel launch;
 36. ``python -m bokego_tpu_torch.parallel.scaling 2 SCALING_K --device
-    cuda:0 --backend gloo``: exit 0, actions and scores IDENTICAL.
+    cuda:0 --backend gloo`` (the bench's nets, its weight files named): exit
+    0, actions and scores IDENTICAL.
 
 The last seven lines of standard output are the training phases' figures,
 the data-parallel phases' figures, the matches' figures, the tools'
@@ -190,7 +197,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
+from bokego_tpu_torch.config import BENCH_POLICY_WEIGHTS, BENCH_VALUE_WEIGHTS, POLICY_WEIGHTS, VALUE_WEIGHTS
 from bokego_tpu_torch.mfu_report import bound_ms, k1_work
 
 MOVES = 20  # self-play moves of the self-play path
@@ -224,6 +231,8 @@ BIG_BATCH, BIG_MOVES = 4096, 8  # phase 34: the batch variant (BASELINE.json con
 BF16_TOL = 1e-4  # phase 33: the bf16 evaluator on the card against the CPU (ATOL_BF16 of tests/test_torch_bench.py)
 LATENCY_SECONDS = 1.0  # phase 35: serving_latency's --time, one trial a path
 SCALING_K = 4  # phase 36: games per rank of parallel.scaling over 2 gloo ranks on cuda:0
+BENCH_NETS = ", ".join(os.path.relpath(p, os.path.dirname(os.path.abspath(__file__)))
+                       for p in (BENCH_POLICY_WEIGHTS, BENCH_VALUE_WEIGHTS))  # the bench's weight files
 
 
 def log(msg: str) -> None:
@@ -1632,8 +1641,9 @@ def tool_phases(dev, params) -> tuple[dict, dict, dict]:
             k1_bytes=rep["k1_bytes"], launches=counts.launches, forwards=n, conv_kernels=rep["kernels"],
         )
     )
-    log(f"mfu_report: {len(rep['split_counts'].forwards)} and {n} forwards (as many K2 launches; model 51) and 51 K1 "
-        f"launches a move, FLOPs as net_flops; K1/K2 bit for bit at B={BATCH}; {figures['mfu_report']['seconds']:.1f} s")
+    log(f"mfu_report (nets {BENCH_NETS}): {len(rep['split_counts'].forwards)} and {n} forwards (as many K2 launches; "
+        f"model 51) and 51 K1 launches a move, FLOPs as net_flops; K1/K2 bit for bit at B={BATCH}; "
+        f"{figures['mfu_report']['seconds']:.1f} s")
 
     # 31. batched simulation throughput, cut to SIM_TOOL_ROLLOUTS rollouts and SIM_RUNS timed run
     rollout.reset_launches()
@@ -1654,25 +1664,29 @@ def tool_phases(dev, params) -> tuple[dict, dict, dict]:
 
 def _bench_run(dev, batch: int, moves: int, dtype: str) -> tuple[dict, torch.Tensor]:
     """One in-process bench run (a warm-up move, then ``moves`` timed ones)
-    with the launch counts read around it: 51 K1 launches a move, K2 on
-    eval steps with work, legal moves only.  Returns its figures and the
-    final boards (on the CPU)."""
-    from bokego_tpu_torch import bench
+    with the launch counts and, through ``mfu_report.counting``, the
+    forwards read around it: 51 K1 launches a move, K2 on eval steps with
+    work, legal moves only.  Returns its figures and the final boards (on
+    the CPU)."""
+    from bokego_tpu_torch import bench, mfu_report
     from bokego_tpu_torch.config import BENCH_CONFIG
-    from bokego_tpu_torch.ops import rollout
 
+    params, ev = bench.bench_nets(dev, dtype)
     torch.cuda.synchronize()
-    rollout.reset_launches()
-    out, states, done = bench.run(dev, bench.Settings(batch, moves, BENCH_CONFIG.n_rollouts, BENCH_CONFIG, dtype))
-    launches = dict(rollout.launches)
+    with mfu_report.counting(ev) as (cev, counts):
+        out, states, done = bench.run(dev, bench.Settings(batch, moves, BENCH_CONFIG.n_rollouts, BENCH_CONFIG, dtype),
+                                      (params, cev))
+    launches = counts.launches
     what = f"bench B={batch} {dtype}"
     check(launches["descend_backprop"] == 51 * (moves + 1), f"{what}: K1 launches {launches}, expected 51 a move")
     check(launches["write_rows"] > 0, f"{what}: K2 never launched")
     check(out["value"] > 0 and not bool(states.invalid.any()), f"{what}: {out}")
     check(int(states.turn.min()) == moves, f"{what}: turns {states.turn.min()}..{states.turn.max()}")
     ms = 60e3 * batch / out["value"] / moves  # the line's value counts games of ``moves`` moves
+    check(len(counts.forwards) >= moves + 1 and counts.forwards == [batch] * len(counts.forwards),
+          f"{what}: forwards {counts.forwards}")
     figures = dict(ms_per_move=ms, games_per_min_80_moves=batch * 60e3 / (80 * ms), launches=launches,
-                   done=int(done.sum()))
+                   forwards_per_move=len(counts.forwards) / (moves + 1), done=int(done.sum()))
     return figures, states.board.cpu()
 
 
@@ -1704,7 +1718,7 @@ def bench_phases(dev) -> tuple[dict, dict, dict, dict]:
           and line["vs_baseline"] is None and line["unit"] == "games/min/chip"
           and f"80 moves, batch {BENCH_BATCH}, fp32, device {torch.cuda.get_device_name(0)}" in line["metric"],
           f"bench line {lines[0]}")
-    log(f"bench (python -m bokego_tpu_torch.bench): exit 0 in {seconds:.1f} s; its line:")
+    log(f"bench (python -m bokego_tpu_torch.bench, nets {BENCH_NETS}): exit 0 in {seconds:.1f} s; its line:")
     log(f"  {lines[0]}")
     figures["bench"] = dict(line=line, process_s=seconds)
 
@@ -1750,8 +1764,11 @@ def bench_phases(dev) -> tuple[dict, dict, dict, dict]:
                 fp32_vs_fp32=same_games(boards["fp32"][0], boards["fp32"][1]),
                 bf16_vs_bf16=same_games(boards["bf16"][0], boards["bf16"][1]))
     figures["bf16"] = dict(evaluator=errors, runs=runs, same_final_boards=kept)
-    log(f"bench B={BENCH_BATCH} x {BENCH_PAIR_MOVES} moves in turns (fp32, bf16, bf16, fp32): ms/move fp32 "
-        f"{[round(r['ms_per_move'], 2) for r in runs['fp32']]}, bf16 {[round(r['ms_per_move'], 2) for r in runs['bf16']]}; "
+    log(f"bench B={BENCH_BATCH} x {BENCH_PAIR_MOVES} moves in turns (fp32, bf16, bf16, fp32; nets {BENCH_NETS}): "
+        f"ms/move fp32 {[round(r['ms_per_move'], 2) for r in runs['fp32']]}, "
+        f"bf16 {[round(r['ms_per_move'], 2) for r in runs['bf16']]}; forwards a move (the warm-up move included) "
+        f"fp32 {[round(r['forwards_per_move'], 2) for r in runs['fp32']]}, "
+        f"bf16 {[round(r['forwards_per_move'], 2) for r in runs['bf16']]}; "
         f"launches of the first fp32 run {bench_counts} (the warm-up move included); share of games with the "
         f"same board after {BENCH_PAIR_MOVES} moves: {kept}")
 
@@ -1771,8 +1788,9 @@ def bench_phases(dev) -> tuple[dict, dict, dict, dict]:
     torch.cuda.empty_cache()
     per_move = {k: v / (BIG_MOVES + 1) for k, v in big["launches"].items()}
     figures["bench_b4096"] = big
-    log(f"bench B={BIG_BATCH} x {BIG_MOVES} moves fp32: ms/move {big['ms_per_move']:.2f} "
-        f"({big['games_per_min_80_moves']:.1f} games/min/chip for 80 such moves); launches a move {per_move}; "
+    log(f"bench B={BIG_BATCH} x {BIG_MOVES} moves fp32 (nets {BENCH_NETS}): ms/move {big['ms_per_move']:.2f} "
+        f"({big['games_per_min_80_moves']:.1f} games/min/chip for 80 such moves); launches a move {per_move}, "
+        f"forwards a move {big['forwards_per_move']:.2f}; "
         f"peak memory {big['peak_mem_gib']:.2f} GiB (max_memory_allocated), {big['peak_over_live_gib']:.2f} GiB "
         f"over what earlier phases hold")
 
@@ -1803,7 +1821,8 @@ def bench_phases(dev) -> tuple[dict, dict, dict, dict]:
     for text in proc.stdout.strip().splitlines():
         log(f"  {text}")
     figures["scaling"] = dict(output=proc.stdout.strip().splitlines(), process_s=seconds)
-    log(f"parallel.scaling 2 {SCALING_K} (gloo, 2 ranks on cuda:0): exit 0 in {seconds:.1f} s, actions and scores IDENTICAL")
+    log(f"parallel.scaling 2 {SCALING_K} (gloo, 2 ranks on cuda:0, nets {BENCH_NETS}): exit 0 in {seconds:.1f} s, "
+        "actions and scores IDENTICAL")
     return bench_counts, big["launches"], big_records, figures
 
 
@@ -1817,10 +1836,10 @@ def main() -> int:
 
     fp32_only()
 
-    from bokego_tpu_torch.config import BENCH_BATCH as BATCH, BENCH_CONFIG as CFG, VALUE_WEIGHTS
+    from bokego_tpu_torch import bench
+    from bokego_tpu_torch.config import BENCH_BATCH as BATCH, BENCH_CONFIG as CFG
     from bokego_tpu_torch.env import rules, state as st
     from bokego_tpu_torch.features import features_batch
-    from bokego_tpu_torch.models import nets
     from bokego_tpu_torch.measure import card_line
     from bokego_tpu_torch.ops import build, rollout
     from bokego_tpu_torch.parallel.selfplay import selfplay
@@ -1839,11 +1858,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    # Networks of the main path: seeded random-init policy, shipped value net.
-    policy = nets.init_policy(128, seed=0, device=dev)
-    value = nets.load_value(VALUE_WEIGHTS, device=dev)
-    params = {"policy": policy, "value": value}
-    ev = mcts.net_evaluator()
+    # Networks of the main path: the bench's, read from their files.
+    params, ev = bench.bench_nets(dev, "fp32")
+    policy, value = params["policy"], params["value"]
+    log(f"nets of the main path: {BENCH_NETS}")
     records = {}
 
     # Positions of seeded random games: roots of the warm trees, net inputs.

@@ -20,11 +20,19 @@ bench's random-init nets (``init_policy(PRNGKey(0))``,
 * The two routes of bf16, parameters rounded on each call and nets stored
   in bf16 once, give the same bits; ``dtype=None`` gives the bits of the
   stock layers' forward, the evaluator before the bf16 route.
-* The bench's ``one_move`` over 4 moves at B=8 equals the JAX bench's move
+* The bench's nets: ``data/weights/jax_init_policy_key0.pt`` and
+  ``jax_init_value_key1.pt`` hold ``convert.from_flax`` of the JAX bench's
+  random-init nets bit for bit, and ``bench.bench_nets``, ``mfu_report``
+  and ``parallel.scaling`` load exactly those tensors; a missing or
+  unreadable file raises.
+* The bench's ``one_move`` with those nets equals the JAX bench's move
   (rebuilt here from ``bench.py``'s body, which nests it) state for state
   and ``done`` for ``done``, in fp32: on the non-kernel path
-  (``use_kernel=False, eval_every=1``) and on the kernel path (the port's
-  plain versions against Pallas in interpret mode).
+  (``use_kernel=False, eval_every=1``) over the bench's whole game, 81
+  moves at B=8 and 8 rollouts; on the kernel path (the port's plain
+  versions against Pallas in interpret mode) over 4 moves at B=8 and 8
+  rollouts, and over 3 moves at B=2 and the bench's 400 rollouts.
+* ``bench_game``'s buckets and per-move forwards at the CPU's size.
 * ``python -m bokego_tpu_torch.bench``: its JSON line's keys, the CPU smoke
   configuration with ``"smoke": true``, the environment variables, and a
   non-zero exit without a GPU and without ``--device cpu``.
@@ -38,6 +46,7 @@ import dataclasses
 import functools
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -57,10 +66,9 @@ from bokego_tpu.models import inference as jinference
 from bokego_tpu.models import init_policy as jinit_policy, init_value as jinit_value
 from bokego_tpu.search import mcts as jmcts
 from bokego_tpu.train import checkpoints as jcheckpoints
-from bokego_tpu_torch import bench, serving_latency
-from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG
+from bokego_tpu_torch import bench, bench_game, mfu_report, serving_latency
+from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG, BENCH_POLICY_WEIGHTS, BENCH_VALUE_WEIGHTS
 from bokego_tpu_torch.models import convert, inference, nets
-from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.parallel import scaling
 from bokego_tpu_torch.search import mcts
 from tests.torch_port_util import assert_states_equal, random_positions, to_port
@@ -239,11 +247,68 @@ def test_policy_logits_and_policy_value_states_match_jax(weights, positions):
     np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
-def test_one_move_matches_jax_bench(kernel):
-    """``bench.py``'s move, rebuilt from its body: the CPU configuration,
-    and the card's kernel configuration at the CPU's sizes."""
-    n_rollouts, batch = 8, 8
+def _same_tensors(got: dict, want: dict) -> None:
+    """Every tensor of ``want`` is in ``got`` with its dtype and its bits,
+    and ``got`` has no other."""
+    assert set(got) == set(want)
+    for k, t in want.items():
+        assert got[k].dtype == t.dtype and torch.equal(got[k].cpu(), t), k
+
+
+class _Searched(Exception):
+    """Raised with the nets of the first search a tool runs."""
+
+
+def test_bench_nets_are_the_jax_bench_nets(monkeypatch):
+    """The shipped files hold ``convert.from_flax`` of the JAX bench's
+    ``init_policy(PRNGKey(0))`` and ``init_value(PRNGKey(1))`` bit for bit,
+    BatchNorm statistics included; the bench, ``mfu_report`` and
+    ``parallel.scaling`` play exactly those tensors."""
+    want = {kind: convert.from_flax(v) for kind, v in _jax_vars("random-init").items()}
+    for kind, path in (("policy", BENCH_POLICY_WEIGHTS), ("value", BENCH_VALUE_WEIGHTS)):
+        _same_tensors(torch.load(path, map_location="cpu", weights_only=True)["model_state_dict"], want[kind])
+    assert any("running_var" in k for k in want["policy"]) and any("lin_bn.running_mean" in k for k in want["value"])
+
+    def same_nets(params):
+        for kind in ("policy", "value"):
+            _same_tensors(params[kind].state_dict(), want[kind])
+            assert not params[kind].training
+
+    same_nets(bench.bench_nets("cpu", "fp32")[0])
+    same_nets(scaling._setup(torch.device("cpu"))[0])
+
+    def searched(states, ev, params, cfg):
+        raise _Searched(params)
+
+    monkeypatch.setattr(mfu_report, "search_move", searched)
+    with pytest.raises(_Searched) as seen:
+        mfu_report.report(torch.device("cpu"), 8, 16, 4)
+    same_nets(seen.value.args[0])
+
+
+def test_bench_without_its_weights_raises(monkeypatch, tmp_path):
+    """A missing or unreadable weight file raises: no seeded draw stands in."""
+    monkeypatch.setattr(bench, "BENCH_POLICY_WEIGHTS", str(tmp_path / "missing.pt"))
+    with pytest.raises(FileNotFoundError):
+        bench.bench_nets("cpu", "fp32")
+    bad = tmp_path / "bad.pt"
+    bad.write_bytes(b"not a checkpoint")
+    monkeypatch.setattr(bench, "BENCH_POLICY_WEIGHTS", str(bad))
+    with pytest.raises(pickle.UnpicklingError):
+        bench.bench_nets("cpu", "fp32")
+
+
+@pytest.mark.parametrize(
+    "kernel,moves,batch,n_rollouts", [(False, 81, 8, 8), (True, 4, 8, 8), (True, 3, 2, 400)],
+    ids=["plain", "kernel", "kernel400"],
+)
+def test_one_move_matches_jax_bench(kernel, moves, batch, n_rollouts):
+    """``bench.py``'s move, rebuilt from its body: the CPU configuration
+    over the bench's whole game and one move past it (81 moves: every game
+    is done at ``max_turns=80`` and then passes), the card's kernel
+    configuration at the CPU's sizes, and at its 400 rollouts on two
+    boards, where leaves reach ``expand_thresh=100`` and expand.  The port
+    side plays ``bench.bench_nets``."""
     jcfg = JConfig(
         expand_thresh=100, no_sim=True, max_turns=80, max_nodes=512, n_rollouts=n_rollouts,
         use_kernel=kernel, kernel_block=64, kernel_levels=6, eval_every=8 if kernel else 1,
@@ -263,20 +328,25 @@ def test_one_move_matches_jax_bench(kernel):
     if not kernel:
         cfg = dataclasses.replace(cfg, use_kernel=False, eval_every=1)
         assert bench.settings(torch.device("cpu"), {}).cfg == cfg
-    port = _port_nets(params)
-    ev = mcts.net_evaluator(has_value=True)
+    port, ev = bench.bench_nets("cpu", "fp32")
     rng = jax.random.PRNGKey(42)
     js, jdone = jst.new_game_batch(batch), jnp.zeros((batch,), bool)
     ts, tdone = to_port(js), torch.zeros(batch, dtype=torch.bool)
-    rollout.reset_launches()
-    for _ in range(4):
+    forwards = []
+    for _ in range(moves):
         rng, r = jax.random.split(rng)
         js, jdone = jax_move(r, js, jdone)
-        ts, tdone = bench.one_move(ts, tdone, ev, port, cfg, n_rollouts)
+        with mfu_report.counting(ev) as (cev, counts):
+            ts, tdone = bench.one_move(ts, tdone, cev, port, cfg, n_rollouts)
+        forwards.append(len(counts.forwards))
         assert_states_equal(js, ts)
         np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
-    assert int(ts.turn.min()) == 4
-    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0}  # CPU tensors: the plain versions
+        assert counts.launches == {"descend_backprop": 0, "write_rows": 0}  # CPU tensors: the plain versions
+    assert int(ts.turn.min()) == moves
+    if moves > jcfg.max_turns:
+        assert bool(tdone.all())
+    if n_rollouts > jcfg.expand_thresh:
+        assert min(forwards) > 1  # past init_trees' forward: leaves expanded on every move
 
 
 def test_bench_json_line_and_smoke_configuration(capsys, monkeypatch):
@@ -351,3 +421,30 @@ def test_scaling_on_the_cpu(capsys):
     rows = re.findall(r"^\| (\d+) \| (\d+) \| [\d.]+ \| [\d.]+ \| [\d.]+ \|$", out, flags=re.M)
     assert rows == [("1", "2"), ("2", "4")]
     assert "sharded(n=2) vs single-device at equal batch+seed: actions IDENTICAL, scores IDENTICAL" in out
+
+
+def test_bench_game_on_the_cpu(capsys, monkeypatch):
+    """``bench_game``'s buckets sum its moves; each move's forwards are
+    those ``mfu_report.counting`` counts around ``bench.one_move`` (every
+    eval step of the CPU configuration runs one, and ``init_trees`` one);
+    ``--nets seeded`` plays the port's seeded draws."""
+    bench_game.main(["--device", "cpu", "--bucket", "3"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == (
+        "nets bench (jax_init_policy_key0.pt, jax_init_value_key1.pt); batch 8, 8 rollouts a move, "
+        "4 moves after a warm-up; device cpu"
+    )
+    rows = [line.split(" | ") for line in lines[3:-1]]
+    assert [r[0] for r in rows] == ["| 1-3", "| 4-4", "| all"]
+    assert [int(r[1]) for r in rows] == [27, 9, 36]  # 8 eval steps and init_trees a move
+    last = json.loads(lines[-1])
+    assert last["nets"] == "bench" and last["forwards"] == [9] * 4 and len(last["ms"]) == 4
+    params, _, source = bench_game.game_nets("seeded", "cpu")
+    assert source == "init_policy(seed=0), init_value(seed=1)"
+    for kind, init in (("policy", nets.init_policy), ("value", nets.init_value)):
+        _same_tensors(params[kind].state_dict(), init(device="cpu").state_dict())
+    with pytest.raises(ValueError, match="nets"):
+        bench_game.game_nets("random", "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_game.main([])  # no GPU and no --device cpu: nothing runs on the CPU instead

@@ -162,7 +162,7 @@ def test_import_leaves_jax_out():
         "bokego_tpu_torch.cli, bokego_tpu_torch.gtp.engine, bokego_tpu_torch.gtp.process, "
         "bokego_tpu_torch.search.leafpar, bokego_tpu_torch.env.scoring, bokego_tpu_torch.measure, "
         "bokego_tpu_torch.gnugo, bokego_tpu_torch.utils.metrics, bokego_tpu_torch.mfu_report, "
-        "bokego_tpu_torch.sim_throughput, chip_smoke\n"
+        "bokego_tpu_torch.sim_throughput, bokego_tpu_torch.bench_game, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'bokego_tpu')]\n"
         "assert not bad, bad\n"
     )
