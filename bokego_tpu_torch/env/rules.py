@@ -23,6 +23,7 @@ import torch
 from bokego_tpu_torch.coords import BLACK, DIAGONALS, EMPTY, NEIGHBORS, NN, PASS_ACTION, WHITE
 from bokego_tpu_torch.env import zobrist
 from bokego_tpu_torch.env.state import NO_KO, GoState
+from bokego_tpu_torch.utils import metrics
 
 _OFF = -1  # colour read at the off-board pad
 _NO_GROUP = NN  # label of empty / off-board points
@@ -83,7 +84,9 @@ def group_info(board: torch.Tensor) -> GroupInfo:
         # Pointer jump: a label is a stone of the same group with a label no
         # larger, so following it only speeds the walk to the group minimum.
         new = _pad(new, _NO_GROUP).gather(1, new)
-        if torch.equal(new, labels):
+        with metrics.span("sync.group_pass"):
+            fixed = torch.equal(new, labels)
+        if fixed:
             break
         labels = new
 
@@ -183,63 +186,64 @@ def step(state: GoState, action: torch.Tensor) -> GoState:
 
     An illegal action leaves that position unchanged and latches ``invalid``.
     """
-    t = _tables(state.board.device)
-    board, ko, turn = state.board, state.ko, state.turn
-    action = action.long()
-    color = state.to_play
-    opp = _opponent(color)
-    is_pass = action == PASS_ACTION
-    in_range = (action >= 0) & (action < NN)
-    p = torch.where(in_range, action, 0)
+    with metrics.span("rules.step"):
+        t = _tables(state.board.device)
+        board, ko, turn = state.board, state.ko, state.turn
+        action = action.long()
+        color = state.to_play
+        opp = _opponent(color)
+        is_pass = action == PASS_ACTION
+        in_range = (action >= 0) & (action < NN)
+        p = torch.where(in_range, action, 0)
 
-    info = group_info(board)
-    nbrs = t.nbrs[p]  # (B, 4)
-    nbr_color = _pad(board, _OFF).gather(1, nbrs)
-    nbr_lab = _pad(info.labels, _NO_GROUP).gather(1, nbrs)
-    nbr_libs = _pad(info.libs, 0).gather(1, nbrs)
+        info = group_info(board)
+        nbrs = t.nbrs[p]  # (B, 4)
+        nbr_color = _pad(board, _OFF).gather(1, nbrs)
+        nbr_lab = _pad(info.labels, _NO_GROUP).gather(1, nbrs)
+        nbr_libs = _pad(info.libs, 0).gather(1, nbrs)
 
-    dying_lab = torch.where(
-        (nbr_color == opp[:, None]) & (nbr_libs == 1), nbr_lab, _NO_GROUP
-    )
-    captured = (board == opp[:, None]) & (
-        info.labels[:, :, None] == dying_lab[:, None, :]
-    ).any(-1)
-    n_captured = captured.sum(-1)
+        dying_lab = torch.where(
+            (nbr_color == opp[:, None]) & (nbr_libs == 1), nbr_lab, _NO_GROUP
+        )
+        captured = (board == opp[:, None]) & (
+            info.labels[:, :, None] == dying_lab[:, None, :]
+        ).any(-1)
+        n_captured = captured.sum(-1)
 
-    empty_nbr = (nbr_color == EMPTY).any(-1)
-    joins_live = ((nbr_color == color[:, None]) & (nbr_libs >= 2)).any(-1)
-    legal_point = (
-        in_range
-        & (board.gather(1, p[:, None])[:, 0] == EMPTY)
-        & (p != ko)
-        & (empty_nbr | (n_captured > 0) | joins_live)
-    )
+        empty_nbr = (nbr_color == EMPTY).any(-1)
+        joins_live = ((nbr_color == color[:, None]) & (nbr_libs >= 2)).any(-1)
+        legal_point = (
+            in_range
+            & (board.gather(1, p[:, None])[:, 0] == EMPTY)
+            & (p != ko)
+            & (empty_nbr | (n_captured > 0) | joins_live)
+        )
 
-    surrounded = ((nbr_color == _OFF) | (nbr_color == opp[:, None])).all(-1)
-    cap_idx = captured.int().argmax(-1)  # first captured point; 0 if none
-    new_ko = torch.where((n_captured == 1) & surrounded, cap_idx, NO_KO)
-    placed = board.scatter(1, p[:, None], color[:, None])
-    new_board = torch.where(captured, EMPTY, placed)
+        surrounded = ((nbr_color == _OFF) | (nbr_color == opp[:, None])).all(-1)
+        cap_idx = captured.int().argmax(-1)  # first captured point; 0 if none
+        new_ko = torch.where((n_captured == 1) & surrounded, cap_idx, NO_KO)
+        placed = board.scatter(1, p[:, None], color[:, None])
+        new_board = torch.where(captured, EMPTY, placed)
 
-    me, them = turn % 2, (turn + 1) % 2
-    ko_old = torch.where((ko != NO_KO)[:, None], t.zt[2, ko.clamp(min=0)], 0)
-    ko_new = torch.where((new_ko != NO_KO)[:, None], t.zt[2, new_ko.clamp(min=0)], 0)
-    cap_xor = _xor_reduce(torch.where(captured[..., None], t.zt[them], 0), dim=1)
-    h = state.hash ^ t.zt[me, p] ^ ko_old ^ ko_new ^ cap_xor ^ t.zflip
-    h_pass = state.hash ^ ko_old ^ t.zflip
+        me, them = turn % 2, (turn + 1) % 2
+        ko_old = torch.where((ko != NO_KO)[:, None], t.zt[2, ko.clamp(min=0)], 0)
+        ko_new = torch.where((new_ko != NO_KO)[:, None], t.zt[2, new_ko.clamp(min=0)], 0)
+        cap_xor = _xor_reduce(torch.where(captured[..., None], t.zt[them], 0), dim=1)
+        h = state.hash ^ t.zt[me, p] ^ ko_old ^ ko_new ^ cap_xor ^ t.zflip
+        h_pass = state.hash ^ ko_old ^ t.zflip
 
-    ok = is_pass | legal_point
-    return GoState(
-        board=torch.where((is_pass | ~ok)[:, None], board, new_board),
-        ko=torch.where(~ok, ko, torch.where(is_pass, NO_KO, new_ko)),
-        turn=torch.where(ok, turn + 1, turn),
-        last_move=torch.where(ok, action, state.last_move),
-        hash=torch.where(
-            (~ok)[:, None], state.hash, torch.where(is_pass[:, None], h_pass, h)
-        ),
-        komi=state.komi,
-        invalid=state.invalid | ~ok,
-    )
+        ok = is_pass | legal_point
+        return GoState(
+            board=torch.where((is_pass | ~ok)[:, None], board, new_board),
+            ko=torch.where(~ok, ko, torch.where(is_pass, NO_KO, new_ko)),
+            turn=torch.where(ok, turn + 1, turn),
+            last_move=torch.where(ok, action, state.last_move),
+            hash=torch.where(
+                (~ok)[:, None], state.hash, torch.where(is_pass[:, None], h_pass, h)
+            ),
+            komi=state.komi,
+            invalid=state.invalid | ~ok,
+        )
 
 
 def area_colors(board: torch.Tensor) -> torch.Tensor:
@@ -297,7 +301,8 @@ def play_moves(state: GoState, actions: torch.Tensor) -> GoState:
 
 def is_terminal(state: GoState, max_turns: int) -> torch.Tensor:
     """Game over past ``max_turns`` or right after a pass."""
-    return (state.turn > max_turns) | (state.last_move == PASS_ACTION)
+    with metrics.span("rules.is_terminal"):
+        return (state.turn > max_turns) | (state.last_move == PASS_ACTION)
 
 
 class LeafAnalysis(NamedTuple):
@@ -335,7 +340,8 @@ def _leaf_analysis(state: GoState) -> tuple[LeafAnalysis, torch.Tensor]:
 
 def leaf_analysis(state: GoState) -> LeafAnalysis:
     """Move tables plus every hashless successor of each position."""
-    return _leaf_analysis(state)[0]
+    with metrics.span("rules.leaf_analysis"):
+        return _leaf_analysis(state)[0]
 
 
 def child_states(state: GoState, with_hash: bool = True) -> tuple[GoState, torch.Tensor]:

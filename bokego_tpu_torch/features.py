@@ -16,6 +16,7 @@ import torch
 from bokego_tpu_torch.coords import BLACK, EMPTY, NN
 from bokego_tpu_torch.env.rules import MoveTables, move_tables
 from bokego_tpu_torch.env.state import GoState
+from bokego_tpu_torch.utils import metrics
 
 NUM_PLANES = 27
 
@@ -30,6 +31,11 @@ def _bucketize(arr: torch.Tensor) -> torch.Tensor:
 def features_from_tables(state: GoState, mt: MoveTables) -> torch.Tensor:
     """Feature planes from a precomputed move analysis (shared with
     successor generation by ``rules.leaf_analysis`` on eval steps)."""
+    with metrics.span("features"):
+        return _planes(state, mt)
+
+
+def _planes(state: GoState, mt: MoveTables) -> torch.Tensor:
     board = state.board
     color = state.to_play[:, None]
     f32 = torch.float32
@@ -55,7 +61,8 @@ def features_from_tables(state: GoState, mt: MoveTables) -> torch.Tensor:
 
 def features_batch(state: GoState) -> torch.Tensor:
     """Batched GoState -> float32 (B, 9, 9, 27) NHWC planes."""
-    return features_from_tables(state, move_tables(state.board, state.ko, state.to_play))
+    with metrics.span("features"):
+        return _planes(state, move_tables(state.board, state.ko, state.to_play))
 
 
 features = features_batch  # the port has only the batched form

@@ -48,6 +48,7 @@ from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.search import leafpar, mcts
 from bokego_tpu_torch.search import tree as tr
 from bokego_tpu_torch.search.playout import select_moves
+from bokego_tpu_torch.utils import metrics
 
 NAME = "bokego-tpu-torch"
 VERSION = "0.1"
@@ -113,7 +114,8 @@ class GTPEngine:
     # -- small reads of the (batch of one) game state ------------------------
 
     def _turn(self) -> int:
-        return int(self.state.turn[0])
+        with metrics.span("sync.turn"):
+            return int(self.state.turn[0])
 
     def _komi(self) -> float:
         return float(self.state.komi[0])
@@ -156,21 +158,24 @@ class GTPEngine:
         leaf's cached value is frozen, so PUCT revisits whichever leaf looks
         best forever and one optimistic evaluation soaks up the visits.  When
         the pool is spent, the right move is to stop searching."""
-        return int(self.trees.n_nodes.max()) + EXPANSION_SLOTS > self.scfg.max_nodes
+        with metrics.span("sync.pool_full"):
+            used = int(self.trees.n_nodes.max())
+        return used + EXPANSION_SLOTS > self.scfg.max_nodes
 
     def rollout(self, n: int) -> bool:
         """Do about ``n`` rollouts, rounded up to whole chunks: 256 while at
         least 256 are left, else 8.  Returns False when the node pool is
         exhausted and nothing was done."""
-        self._ensure_tree()
-        done = 0
-        while done < n:
-            if self._pool_full():
-                return done > 0
-            chunk = BIG_CHUNK if n - done >= BIG_CHUNK else ROLLOUT_CHUNK
-            self._run_chunk(chunk)
-            done += chunk
-        return True
+        with metrics.span("gtp.search"):
+            self._ensure_tree()
+            done = 0
+            while done < n:
+                if self._pool_full():
+                    return done > 0
+                chunk = BIG_CHUNK if n - done >= BIG_CHUNK else ROLLOUT_CHUNK
+                self._run_chunk(chunk)
+                done += chunk
+            return True
 
     def _timed_chunk(self):
         """One synchronised ROLLOUT_CHUNK; folds its time into the running
@@ -230,7 +235,8 @@ class GTPEngine:
         winrate is unknown then, not 0, and must not trigger a resignation."""
         if self.trees is None:
             return None
-        n, q, v = self.trees.root_stats.double().sum(0).tolist()
+        with metrics.span("sync.winrate"):
+            n, q, v = self.trees.root_stats.double().sum(0).tolist()
         if n <= 0:
             return None
         mixed = ((1.0 - self._w) * q + self._w * v) / n
@@ -245,7 +251,8 @@ class GTPEngine:
         rows = self._root_rows()
         has = rows[:, tr.C_CHILD, :NN] >= 0
         n = torch.where(has, rows[:, tr.C_N, :NN], 0.0).sum(0)
-        vis = torch.where(has.any(0), n.long(), -1).tolist()
+        with metrics.span("sync.root_visits"):
+            vis = torch.where(has.any(0), n.long(), -1).tolist()
         return {a: v for a, v in enumerate(vis) if v >= 0}
 
     def _analyze_stats(self, k: int):
@@ -276,27 +283,36 @@ class GTPEngine:
         """Step the engine state; re-root the forest into the played child
         (subtree reuse) or rebuild when the child is not in the tree or the
         pool is running low."""
-        nxt = rules.step(self.state, torch.tensor([action], device=self.device))
-        if bool(nxt.invalid[0]):
-            # rules.step latches `invalid`: keep the state from before
-            raise ValueError("illegal move")
-        self.state = nxt
-        if self.trees is not None:
-            actions = torch.full((self.forest,), action, device=self.device)
-            trees, ok = mcts.advance_root(self.trees, actions)
-            if bool(ok.all()):
-                # relabel the kept subtree to the pool head so that every
-                # off-path slot is reusable
-                trees = tr.compact(trees)
-                if int(trees.n_nodes.max()) + EXPANSION_SLOTS <= self.scfg.max_nodes - 2:
-                    trees = mcts.expand_roots(trees, self.ev, self.params, self.scfg)
-                    if self.scfg.noise_weight > 0:
-                        # fresh root noise each move; child rows store clean
-                        # priors, so reuse stays exact
-                        trees = self._fresh_noise(trees)
-                    self.trees = trees
-                    return
-        self._rebuild()
+        with metrics.span("gtp.apply_move"):
+            with metrics.span("sync.apply_move"):
+                action_t = torch.tensor([action], device=self.device)
+            nxt = rules.step(self.state, action_t)
+            with metrics.span("sync.apply_move"):
+                invalid = bool(nxt.invalid[0])
+            if invalid:
+                # rules.step latches `invalid`: keep the state from before
+                raise ValueError("illegal move")
+            self.state = nxt
+            if self.trees is not None:
+                actions = torch.full((self.forest,), action, device=self.device)
+                trees, ok = mcts.advance_root(self.trees, actions)
+                with metrics.span("sync.apply_move"):
+                    reused = bool(ok.all())
+                if reused:
+                    # relabel the kept subtree to the pool head so that every
+                    # off-path slot is reusable
+                    trees = tr.compact(trees)
+                    with metrics.span("sync.apply_move"):
+                        used = int(trees.n_nodes.max())
+                    if used + EXPANSION_SLOTS <= self.scfg.max_nodes - 2:
+                        trees = mcts.expand_roots(trees, self.ev, self.params, self.scfg)
+                        if self.scfg.noise_weight > 0:
+                            # fresh root noise each move; child rows store clean
+                            # priors, so reuse stays exact
+                            trees = self._fresh_noise(trees)
+                        self.trees = trees
+                        return
+            self._rebuild()
 
     def input_move(self, mv: int):
         """Play a host-encoded move, with undo bookkeeping."""
@@ -460,7 +476,8 @@ class GTPEngine:
         name, args = parts[0].lower(), parts[1:]
         if name not in COMMANDS:
             return f"?{cmd_id} unknown command '{name}'\n\n"
-        result = getattr(self, f"_cmd_{name}")(args)
+        with metrics.span(f"gtp.{name}", request=cmd_id or metrics.NEXT):
+            result = getattr(self, f"_cmd_{name}")(args)
         if hasattr(result, "__next__"):
             return result
         valid, out = result

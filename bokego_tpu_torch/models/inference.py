@@ -9,6 +9,7 @@ import torch
 
 from bokego_tpu_torch.features import features_batch
 from bokego_tpu_torch.models.nets import PolicyNet, PolicyNetV2, ValueNet
+from bokego_tpu_torch.utils import metrics
 
 
 def _forward(net, fts: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
@@ -26,7 +27,8 @@ def policy_logits(net: PolicyNet, fts: torch.Tensor, dtype: torch.dtype | None =
 @torch.inference_mode()
 def policy_probs(net: PolicyNet, fts: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """(B, 9, 9, 27) -> (B, 81) softmax over the points."""
-    return torch.softmax(_forward(net, fts, dtype), dim=-1)
+    with metrics.span("nets.policy"):
+        return torch.softmax(_forward(net, fts, dtype), dim=-1)
 
 
 @torch.inference_mode()
@@ -38,7 +40,8 @@ def policy_logits_v2(net: PolicyNetV2, fts: torch.Tensor) -> torch.Tensor:
 @torch.inference_mode()
 def value_fn(net: ValueNet, fts: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """(B, 9, 9, 27) -> (B,) value in (-1, 1) for the side to move."""
-    return _forward(net, fts, dtype)[..., 0]
+    with metrics.span("nets.value"):
+        return _forward(net, fts, dtype)[..., 0]
 
 
 def policy_value_states(policy: PolicyNet, value: ValueNet, states) -> tuple[torch.Tensor, torch.Tensor]:

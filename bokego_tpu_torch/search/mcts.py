@@ -66,6 +66,7 @@ from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.search import playout as po
 from bokego_tpu_torch.search import tree as tr
 from bokego_tpu_torch.search.tree import Tree, empty_tree, expand_core, gather_states, take_rows
+from bokego_tpu_torch.utils import metrics
 
 
 class Evaluator(NamedTuple):
@@ -140,13 +141,14 @@ def choose_action(trees: Tree) -> torch.Tensor:
 def _expand_batch(trees: Tree, nodes, probs, need, cfg: SearchConfig, precomputed=None) -> Tree:
     """Batched expansion; on the kernel path the parent rows land in place
     through the ``write_rows`` kernel, else through an indexed torch write."""
-    if not cfg.use_kernel:
-        return tr.expand(trees, nodes, probs, need, cfg.branch_num, cfg.max_turns, precomputed)
-    trees, rows, did = expand_core(
-        trees, nodes, probs, need, cfg.branch_num, cfg.max_turns, precomputed
-    )
-    rollout.write_rows(trees.pstats, nodes, rows, did)
-    return trees
+    with metrics.span("search.expand"):
+        if not cfg.use_kernel:
+            return tr.expand(trees, nodes, probs, need, cfg.branch_num, cfg.max_turns, precomputed)
+        trees, rows, did = expand_core(
+            trees, nodes, probs, need, cfg.branch_num, cfg.max_turns, precomputed
+        )
+        rollout.write_rows(trees.pstats, nodes, rows, did)
+        return trees
 
 
 def dirichlet_noise(gen: torch.Generator, batch: int, alpha: float, device) -> torch.Tensor:
@@ -174,17 +176,18 @@ def init_trees(
     """Build a batch of trees and expand and value their roots.  With
     ``cfg.noise_weight > 0`` the root priors are mixed with ``noise (B, 81)``,
     drawn from ``gen`` when it is not given."""
-    trees = empty_tree(root_states, cfg.max_nodes, cfg.max_turns)
-    probs, vals = _with_values(*ev.evaluate(params, root_states))
-    if cfg.noise_weight > 0:
-        if noise is None:
-            if gen is None:
-                raise ValueError("noise_weight > 0 needs a torch.Generator (or the noise itself)")
-            noise = dirichlet_noise(gen, probs.shape[0], cfg.dirichlet_alpha, probs.device)
-        probs = mix_noise(probs, noise, cfg.noise_weight)
-    need = torch.ones_like(trees.root, dtype=torch.bool)
-    trees = _expand_batch(trees, trees.root, probs, need, cfg)
-    return tr.set_leaf_value(trees, trees.root, vals)
+    with metrics.span("search.init_trees"):
+        trees = empty_tree(root_states, cfg.max_nodes, cfg.max_turns)
+        probs, vals = _with_values(*ev.evaluate(params, root_states))
+        if cfg.noise_weight > 0:
+            if noise is None:
+                if gen is None:
+                    raise ValueError("noise_weight > 0 needs a torch.Generator (or the noise itself)")
+                noise = dirichlet_noise(gen, probs.shape[0], cfg.dirichlet_alpha, probs.device)
+            probs = mix_noise(probs, noise, cfg.noise_weight)
+        need = torch.ones_like(trees.root, dtype=torch.bool)
+        trees = _expand_batch(trees, trees.root, probs, need, cfg)
+        return tr.set_leaf_value(trees, trees.root, vals)
 
 
 def launch_rollouts(trees: Tree, ev: Evaluator, cfg: SearchConfig, rollouts: int) -> torch.Tensor:
@@ -192,39 +195,42 @@ def launch_rollouts(trees: Tree, ev: Evaluator, cfg: SearchConfig, rollouts: int
     (tree stats and root stats updated in place, no device sync); returns the
     kernel's ``res`` for the last of them."""
     has_value = ev.has_value
-    return rollout.descend_backprop(
-        trees.pstats,
-        trees.value,
-        trees.root,
-        trees.root_stats,
-        c=cfg.exploration_weight,
-        w=_mix_weight(cfg, has_value),
-        use_value=has_value,
-        levels=cfg.kernel_levels,
-        rollouts=rollouts,
-    )
+    with metrics.span("search.k1"):
+        return rollout.descend_backprop(
+            trees.pstats,
+            trees.value,
+            trees.root,
+            trees.root_stats,
+            c=cfg.exploration_weight,
+            w=_mix_weight(cfg, has_value),
+            use_value=has_value,
+            levels=cfg.kernel_levels,
+            rollouts=rollouts,
+        )
 
 
 def evaluate_leaves(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, res: torch.Tensor) -> Tree:
     """The eval phase of an eval step: value and expand the leaves that the
     rollout described by ``res`` reached, where any tree has work."""
-    kd = rollout.unpack(res)
-    leaves = kd.leaf
-    leaf_visits = torch.where(kd.depth > 0, kd.leaf_n, kd.root_n)
-    # A depth-0 leaf is an unexpanded root: the self-play loop checks root
-    # terminality, so only deeper leaves read the C_TERM flag.
-    leaf_terminal = (kd.depth > 0) & (kd.leaf_terminal > 0)
-    # ~expanded also guards the kernel's level bound: a descent that runs out
-    # of levels stops at an internal node, which must not be re-expanded.
-    need = (
-        (leaf_visits > cfg.expand_thresh)
-        & ~leaf_terminal
-        & ~tr.take_rows(trees.expanded, leaves)
-    )
-    if not bool(need.any() | (kd.leaf_unvalued > 0).any()):
-        return trees
-
-    return _eval_and_expand(trees, ev, params, cfg, leaves, need)
+    with metrics.span("search.eval"):
+        kd = rollout.unpack(res)
+        leaves = kd.leaf
+        leaf_visits = torch.where(kd.depth > 0, kd.leaf_n, kd.root_n)
+        # A depth-0 leaf is an unexpanded root: the self-play loop checks root
+        # terminality, so only deeper leaves read the C_TERM flag.
+        leaf_terminal = (kd.depth > 0) & (kd.leaf_terminal > 0)
+        # ~expanded also guards the kernel's level bound: a descent that runs out
+        # of levels stops at an internal node, which must not be re-expanded.
+        need = (
+            (leaf_visits > cfg.expand_thresh)
+            & ~leaf_terminal
+            & ~tr.take_rows(trees.expanded, leaves)
+        )
+        with metrics.span("sync.any_work"):
+            work = bool(need.any() | (kd.leaf_unvalued > 0).any())
+        if not work:
+            return trees
+        return _eval_and_expand(trees, ev, params, cfg, leaves, need)
 
 
 def _rollout_group(
@@ -250,41 +256,44 @@ def _descend_batch(trees: Tree, cfg: SearchConfig, w: float) -> _Descent:
     gather per level, finished trees idle, and the loop ends (one host sync
     per level) once every tree has stopped or ``max_depth - 1`` levels ran.
     Exact score ties go to the lowest action, as ``argmax`` gives them."""
-    c = cfg.exploration_weight
-    batch = trees.root.shape[0]
-    dev = trees.root.device
-    cur = trees.root
-    done = torch.zeros(batch, dtype=torch.bool, device=dev)
-    leaf_n = torch.zeros(batch, dtype=torch.float32, device=dev)
-    depth = torch.zeros(batch, dtype=torch.int64, device=dev)
-    rows, acts = [], []
-    for _ in range(cfg.max_depth - 1):
-        row = take_rows(trees.pstats, cur)  # (B, 8, 128)
-        kids = row[:, tr.C_CHILD, :NN]
-        valid = kids >= 0
-        # terminal nodes never have children, so "has any child" alone
-        # decides whether a node is internal
-        internal = valid.any(1) & ~done
-        nf = row[:, tr.C_N, :NN]
-        avg = torch.where(
-            nf > 0,
-            ((1.0 - w) * row[:, tr.C_WQ, :NN] + w * row[:, tr.C_WV, :NN]) / nf.clamp(min=1.0),
-            0.0,
-        )
-        total = torch.where(valid, nf, 0.0).sum(1).clamp(min=1.0)
-        score = -avg + c * row[:, tr.C_PRIOR, :NN] * total.sqrt()[:, None] / (1.0 + nf)
-        score = torch.where(valid, score, float("-inf"))
-        best_a = score.argmax(1)
-        best = kids.gather(1, best_a[:, None])[:, 0].long()
-        rows.append(cur)
-        acts.append(torch.where(internal, best_a, 0))
-        leaf_n = torch.where(internal, nf.gather(1, best_a[:, None])[:, 0], leaf_n)
-        depth = torch.where(internal, depth + 1, depth)
-        cur = torch.where(internal, best, cur)
-        done = done | ~internal
-        if bool(done.all()):
-            break
-    return _Descent(leaf=cur, rows=torch.stack(rows, 1), acts=torch.stack(acts, 1), leaf_n=leaf_n, depth=depth)
+    with metrics.span("search.descend"):
+        c = cfg.exploration_weight
+        batch = trees.root.shape[0]
+        dev = trees.root.device
+        cur = trees.root
+        done = torch.zeros(batch, dtype=torch.bool, device=dev)
+        leaf_n = torch.zeros(batch, dtype=torch.float32, device=dev)
+        depth = torch.zeros(batch, dtype=torch.int64, device=dev)
+        rows, acts = [], []
+        for _ in range(cfg.max_depth - 1):
+            row = take_rows(trees.pstats, cur)  # (B, 8, 128)
+            kids = row[:, tr.C_CHILD, :NN]
+            valid = kids >= 0
+            # terminal nodes never have children, so "has any child" alone
+            # decides whether a node is internal
+            internal = valid.any(1) & ~done
+            nf = row[:, tr.C_N, :NN]
+            avg = torch.where(
+                nf > 0,
+                ((1.0 - w) * row[:, tr.C_WQ, :NN] + w * row[:, tr.C_WV, :NN]) / nf.clamp(min=1.0),
+                0.0,
+            )
+            total = torch.where(valid, nf, 0.0).sum(1).clamp(min=1.0)
+            score = -avg + c * row[:, tr.C_PRIOR, :NN] * total.sqrt()[:, None] / (1.0 + nf)
+            score = torch.where(valid, score, float("-inf"))
+            best_a = score.argmax(1)
+            best = kids.gather(1, best_a[:, None])[:, 0].long()
+            rows.append(cur)
+            acts.append(torch.where(internal, best_a, 0))
+            leaf_n = torch.where(internal, nf.gather(1, best_a[:, None])[:, 0], leaf_n)
+            depth = torch.where(internal, depth + 1, depth)
+            cur = torch.where(internal, best, cur)
+            done = done | ~internal
+            with metrics.span("sync.descend_level"):
+                finished = bool(done.all())
+            if finished:
+                break
+        return _Descent(leaf=cur, rows=torch.stack(rows, 1), acts=torch.stack(acts, 1), leaf_n=leaf_n, depth=depth)
 
 
 def _backprop_batch(
@@ -296,45 +305,47 @@ def _backprop_batch(
     roots' own stats (in place): one ``index_put_(accumulate=True)`` per
     stat plane.  The edges of one path are distinct, so each takes exactly
     one add; unused levels add 0."""
-    batch, levels = desc.rows.shape
-    dev = desc.rows.device
-    # NaN = not evaluated yet (possible only at eval_every > 1): backs up 0
-    leaf_val = torch.nan_to_num(take_rows(trees.value, desc.leaf))
-    lvl = torch.arange(levels, device=dev)[None, :]
-    used = lvl < desc.depth[:, None]
-    # the edge at level i leads to the node at depth i + 1: sign (-1)^(depth-i-1)
-    sign = torch.where((desc.depth[:, None] - lvl - 1) % 2 == 0, 1.0, -1.0)
-    b_idx = torch.arange(batch, device=dev)[:, None].expand(batch, levels)
-    plane = torch.zeros_like(desc.rows)
-    root_sign = torch.where(desc.depth % 2 == 0, 1.0, -1.0)
-    trees.pstats.index_put_(
-        (b_idx, desc.rows, plane + tr.C_N, desc.acts), used.float(), accumulate=True
-    )
-    trees.root_stats[:, 0] += 1.0
-    # root_stats' columns (N, Wq, Wv) are numbered like the stat planes
-    for use, amount, ch in ((sim_reward is not None, sim_reward, tr.C_WQ), (use_value, leaf_val, tr.C_WV)):
-        if use:
-            trees.pstats.index_put_(
-                (b_idx, desc.rows, plane + ch, desc.acts),
-                torch.where(used, sign * amount[:, None], 0.0),
-                accumulate=True,
-            )
-            trees.root_stats[:, ch] += root_sign * amount
-    return trees
+    with metrics.span("search.backprop"):
+        batch, levels = desc.rows.shape
+        dev = desc.rows.device
+        # NaN = not evaluated yet (possible only at eval_every > 1): backs up 0
+        leaf_val = torch.nan_to_num(take_rows(trees.value, desc.leaf))
+        lvl = torch.arange(levels, device=dev)[None, :]
+        used = lvl < desc.depth[:, None]
+        # the edge at level i leads to the node at depth i + 1: sign (-1)^(depth-i-1)
+        sign = torch.where((desc.depth[:, None] - lvl - 1) % 2 == 0, 1.0, -1.0)
+        b_idx = torch.arange(batch, device=dev)[:, None].expand(batch, levels)
+        plane = torch.zeros_like(desc.rows)
+        root_sign = torch.where(desc.depth % 2 == 0, 1.0, -1.0)
+        trees.pstats.index_put_(
+            (b_idx, desc.rows, plane + tr.C_N, desc.acts), used.float(), accumulate=True
+        )
+        trees.root_stats[:, 0] += 1.0
+        # root_stats' columns (N, Wq, Wv) are numbered like the stat planes
+        for use, amount, ch in ((sim_reward is not None, sim_reward, tr.C_WQ), (use_value, leaf_val, tr.C_WV)):
+            if use:
+                trees.pstats.index_put_(
+                    (b_idx, desc.rows, plane + ch, desc.acts),
+                    torch.where(used, sign * amount[:, None], 0.0),
+                    accumulate=True,
+                )
+                trees.root_stats[:, ch] += root_sign * amount
+        return trees
 
 
 def _eval_and_expand(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, leaves, need) -> Tree:
     """Value the leaves with one net forward and expand those in ``need``."""
-    leaf_states = gather_states(trees.nodes, leaves)
-    if ev.evaluate_fts is not None:
-        la = rules.leaf_analysis(leaf_states)
-        probs, vals = _with_values(*ev.evaluate_fts(params, features_from_tables(leaf_states, la.mt)))
-        pre = (la.children, la.legal)
-    else:
-        probs, vals = _with_values(*ev.evaluate(params, leaf_states))
-        pre = rules.child_states(leaf_states, with_hash=False)
-    trees = _expand_batch(trees, leaves, probs, need, cfg, precomputed=pre)
-    return tr.set_leaf_value(trees, leaves, vals)
+    with metrics.span("search.eval_and_expand"):
+        leaf_states = gather_states(trees.nodes, leaves)
+        if ev.evaluate_fts is not None:
+            la = rules.leaf_analysis(leaf_states)
+            probs, vals = _with_values(*ev.evaluate_fts(params, features_from_tables(leaf_states, la.mt)))
+            pre = (la.children, la.legal)
+        else:
+            probs, vals = _with_values(*ev.evaluate(params, leaf_states))
+            pre = rules.child_states(leaf_states, with_hash=False)
+        trees = _expand_batch(trees, leaves, probs, need, cfg, precomputed=pre)
+        return tr.set_leaf_value(trees, leaves, vals)
 
 
 def _simulate(
@@ -372,9 +383,10 @@ def _search_step_plain(
         & ~take_rows(trees.terminal, leaves)
         & ~take_rows(trees.expanded, leaves)
     )
-    work = _is_eval_step(cfg, step_idx) and bool(
-        need.any() | take_rows(trees.value, leaves).isnan().any()
-    )
+    work = False
+    if _is_eval_step(cfg, step_idx):
+        with metrics.span("sync.work_flag"):
+            work = bool(need.any() | take_rows(trees.value, leaves).isnan().any())
     sim_r = None if cfg.no_sim else _simulate(gen, gather_states(trees.nodes, leaves), ev, params, cfg)
     if cfg.eval_every > 1:
         # delayed valuation, as on the kernel path: backprop with the value
@@ -428,6 +440,7 @@ def run_search(
     """``n_rollouts`` synchronised rollouts (steps ``0..n_rollouts-1``); on
     the kernel path one kernel launch per run of steps up to and including
     the next eval step.  ``gen`` as in :func:`search_step`."""
+    metrics.count("search.rollouts", n_rollouts)
     if not _kernel_path(cfg):
         for i in range(n_rollouts):
             trees = _search_step_plain(trees, ev, params, cfg, i, gen)
@@ -449,9 +462,10 @@ def search(
     actions use the device encoding (81 = pass).  ``gen`` draws the root
     noise when ``cfg.noise_weight > 0`` and the playouts in simulation mode."""
     n = cfg.n_rollouts if n_rollouts is None else n_rollouts
-    trees = init_trees(root_states, ev, params, cfg, gen=gen)
-    trees = run_search(trees, ev, params, cfg, n, gen=gen)
-    return choose_action(trees), trees
+    with metrics.span("search", request=metrics.NEXT):
+        trees = init_trees(root_states, ev, params, cfg, gen=gen)
+        trees = run_search(trees, ev, params, cfg, n, gen=gen)
+        return choose_action(trees), trees
 
 
 # ---------------------------------------------------------------------------

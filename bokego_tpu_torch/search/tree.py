@@ -21,6 +21,7 @@ import torch
 from bokego_tpu_torch.coords import NN
 from bokego_tpu_torch.env import rules
 from bokego_tpu_torch.env.state import GoState
+from bokego_tpu_torch.utils import metrics
 
 # pstats channel planes; lanes >= 81 and planes >= 6 are padding, and the
 # child plane pads with -1 so "no child" masking covers them.
@@ -126,7 +127,8 @@ def expand_core(
     rank = torch.cumsum(write.long(), dim=1) - 1
     slots = tree.n_nodes[:, None] + rank  # meaningful where write
 
-    b_idx, a_idx = write.nonzero(as_tuple=True)
+    with metrics.span("sync.expand_nonzero"):
+        b_idx, a_idx = write.nonzero(as_tuple=True)
     s_idx = slots[b_idx, a_idx]
     for pool, child in zip(tree.nodes.tensors(), csts.tensors()):
         pool[b_idx, s_idx] = child[b_idx, a_idx]

@@ -4,9 +4,21 @@
 ``Counter`` and ``Metrics`` are host-side and behave as in the JAX package.
 What touches the device follows torch: ``Metrics.phase(block_on=...)``
 synchronises the CUDA devices of the tensors it is given before it reads
-the clock, :func:`device_trace` records a ``torch.profiler`` trace, and
-:func:`annotate` opens an NVTX range on a machine with a GPU and is a no-op
-context without one.
+the clock, and :func:`device_trace` records a ``torch.profiler`` trace.
+
+The program's own tracing: :func:`span` and :func:`count`, placed at the
+layer boundaries of the search, the rules, the features, the nets and the
+GTP engine, record into the :class:`Recorder` that :func:`enable` turns on.
+Off (the default), a span is one shared no-op context and a count one
+global test.  On, a span records its name, host start and end
+(``time.perf_counter_ns``), its enclosing span and its request; each name's
+count, total and self time are folded from those records when the recorder
+is read.  While ``torch.profiler`` records, a span also opens
+``torch.profiler.record_function(name)``, so that it is a
+``user_annotation`` event on the trace's own clock beside the kernels.  No
+span synchronises: device time comes from the trace.  Each ``sync.<site>``
+span wraps exactly one host read of a device value, so its count is that
+site's host synchronisations and its time the host's wait there.
 """
 
 from __future__ import annotations
@@ -18,6 +30,7 @@ import time
 from collections import defaultdict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @dataclasses.dataclass
@@ -127,9 +140,129 @@ def device_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def annotate(name: str):
-    """A named region inside a trace: an NVTX range where there is a GPU, a
-    no-op context otherwise."""
-    if torch.cuda.is_available():
-        return torch.cuda.nvtx.range(name)
-    return contextlib.nullcontext()
+NEXT = object()  # span(request=NEXT): number the span as the recorder's next request
+
+
+class Recorder(Metrics):
+    """What the program's spans and counts recorded while it was on.
+
+    ``spans`` lists every span as ``[name, start_ns, end_ns, parent,
+    request]``, ``parent`` the list index of the enclosing span (-1 at the
+    top); ``counters`` holds the counts.  Folded from the spans when the
+    recorder is turned off or read (:meth:`snapshot`): ``phases[name]``,
+    each name's count and total seconds, and ``self_s[name]``, its total
+    less the time its child spans took.  A span does no more than append
+    and close its record, so that the on path stays cheap."""
+
+    def __init__(self):
+        super().__init__()
+        self.spans: list[list] = []
+        self.self_s: dict[str, float] = defaultdict(float)
+        self._open: list[_Span] = []  # the open spans, outermost first
+        self._frames: list[_Span] = []  # one reusable span per depth
+        self._requests = 0
+
+    def fold(self):
+        """Count, total and self time of each span name, over closed spans."""
+        children = [0] * len(self.spans)
+        for _, start, end, parent, _ in self.spans:
+            if end and parent >= 0:
+                children[parent] += end - start
+        self.phases.clear()
+        self.self_s.clear()
+        for (name, start, end, _, _), inner in zip(self.spans, children):
+            if end:
+                self.phases[name].add((end - start) * 1e-9)
+                self.self_s[name] += (end - start - inner) * 1e-9
+
+    def snapshot(self) -> dict:
+        """Each span name's ``count``, ``total_s`` and ``self_s``, and the
+        counters, as plain data."""
+        self.fold()
+        return {
+            "spans": {
+                name: {"count": c.count, "total_s": c.total, "self_s": self.self_s[name]}
+                for name, c in self.phases.items()
+            },
+            "counters": dict(self.counters),
+        }
+
+
+class _Span:
+    """The span open at one depth; spans nest, so one object per depth
+    serves every span opened there (entered as soon as it is made)."""
+
+    __slots__ = ("rec", "name", "request", "index", "annotation")
+
+    def __init__(self, rec: Recorder):
+        self.rec = rec
+
+    def __enter__(self):
+        rec = self.rec
+        parent = rec._open[-1] if rec._open else None
+        if self.request is NEXT:
+            self.request = rec._requests
+            rec._requests += 1
+        elif self.request is None and parent is not None:
+            self.request = parent.request
+        self.index = len(rec.spans)
+        self.annotation = None
+        # torch.profiler's own flag: a module global, cheaper than asking
+        # the profiler through torch.autograd._profiler_enabled()
+        if _autograd_profiler._is_profiler_enabled:
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        rec._open.append(self)
+        rec.spans.append([self.name, time.perf_counter_ns(), 0, -1 if parent is None else parent.index, self.request])
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        rec = self.rec
+        rec._open.pop()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        rec.spans[self.index][2] = end
+        return False
+
+
+_OFF = contextlib.nullcontext()
+_recorder: Recorder | None = None
+
+
+def span(name: str, request=None):
+    """A context that records ``name`` as a span while a recorder is on,
+    and the shared no-op context otherwise.  ``request`` identifies the
+    request the span serves (``NEXT``: a new number); without one the span
+    takes its enclosing span's."""
+    rec = _recorder
+    if rec is None:
+        return _OFF
+    depth = len(rec._open)
+    if depth == len(rec._frames):
+        rec._frames.append(_Span(rec))
+    frame = rec._frames[depth]
+    frame.name, frame.request = name, request
+    return frame
+
+
+def count(name: str, n: float = 1):
+    """Add ``n`` to the counter ``name`` while a recorder is on."""
+    if _recorder is not None:
+        _recorder.counters[name] += n
+
+
+def enable() -> Recorder:
+    """Turn recording on into a fresh :class:`Recorder`; returns it."""
+    global _recorder
+    _recorder = Recorder()
+    return _recorder
+
+
+def disable() -> Recorder | None:
+    """Turn recording off; returns the recorder that was on, folded."""
+    global _recorder
+    rec, _recorder = _recorder, None
+    if rec is not None:
+        rec.fold()
+    return rec

@@ -2,7 +2,8 @@
 the self-play and at the serving shapes), GPU self-play, the non-kernel
 search, leaf-parallel search and simulation mode (with the one-hot playout
 policy, whose draws cannot matter) against their CPU runs, a short engine
-session per configuration on the card, and the profiler hooks.
+session per configuration on the card, the profiler hooks, and the
+program's ``sync.<site>`` spans against CUDA's sync debug mode.
 Marked ``cuda``; they skip without a GPU.  This file imports no JAX, so it
 also runs where JAX is absent:
 
@@ -11,12 +12,17 @@ also runs where JAX is absent:
 Comparisons are exact: the kernels are built without FMA contraction and
 keep the plain versions' order of floating-point operations."""
 
+import collections
+import dataclasses
+import warnings
+
 import pytest
 import torch
 
-from bokego_tpu_torch.config import EngineConfig, SearchConfig
+from bokego_tpu_torch.config import BENCH_CONFIG, EngineConfig, SearchConfig
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.gtp.engine import GTPEngine
+from bokego_tpu_torch.models import nets
 from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.parallel.selfplay import selfplay
 from bokego_tpu_torch.search import leafpar, mcts, tree
@@ -249,20 +255,92 @@ def test_simulation_mode_gpu_equals_cpu(dev, leaf_batch):
 
 
 def test_profiler_hooks_on_the_card(dev, tmp_path):
-    """``device_trace`` records device events, ``annotate`` opens an NVTX
-    range, ``phase(block_on=...)`` waits for the card."""
+    """``device_trace`` records device events, a span of the program's
+    recorder is a ``user_annotation`` beside them, ``phase(block_on=...)``
+    waits for the card."""
     import json
     import os
 
     m = metrics.Metrics()
     x = torch.ones(1 << 20, device=dev)
-    with metrics.device_trace(str(tmp_path)) as prof:
-        with metrics.annotate("add"), m.phase("add", block_on={"x": x}):
-            x += 1
-    assert m.phases["add"].count == 1 and float(x[0]) == 2.0
+    rec = metrics.enable()
+    try:
+        with metrics.device_trace(str(tmp_path)) as prof:
+            with metrics.span("add"), m.phase("add", block_on={"x": x}):
+                x += 1
+    finally:
+        metrics.disable()
+    assert m.phases["add"].count == rec.phases["add"].count == 1 and float(x[0]) == 2.0
     with open(os.path.join(tmp_path, "trace.json")) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "add" and e.get("cat") == "user_annotation" for e in events)
+    assert any(e.get("cat") == "kernel" for e in events)
     assert any(e.self_device_time_total > 0 for e in prof.key_averages())
+
+
+def _syncs_by_span(run):
+    """``run()`` with the program's recorder on, under CUDA's sync debug
+    mode: the innermost span open at each synchronisation it warns of, and
+    the recorder; and where each synchronisation outside every span was."""
+    seen, outside = [], []
+    rec = metrics.enable()
+
+    def innermost():
+        open_spans = [s for s in rec.spans if s[2] == 0]
+        return open_spans[-1][0] if open_spans else None
+
+    def show(message, category, filename, lineno, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            seen.append(innermost())
+            if seen[-1] is None:
+                outside.append(f"{filename}:{lineno}")
+
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        metrics.disable()
+    return seen, rec, outside
+
+
+@pytest.mark.parametrize("path", ["selfplay_move", "genmove"])
+def test_sync_spans_count_every_sync_on_the_card(dev, path):
+    """One batched move on the kernel path (the bench's search at B=64 with
+    root noise, then the rules' step) and one served ``genmove`` (the
+    engine's default search) with the nets on the card: CUDA's sync debug
+    mode warns of as many synchronisations, site by site, as the
+    ``sync.<site>`` spans count, and of none outside them."""
+    params = {"policy": nets.init_policy(device=dev).eval(), "value": nets.init_value(device=dev).eval()}
+    ev = mcts.net_evaluator()
+    if path == "genmove":
+        ecfg = EngineConfig(time_lim=None, n_rollouts=32, pondering=False)
+        eng = GTPEngine(ev, params, SearchConfig(expand_thresh=2, max_nodes=512), ecfg, device=dev)
+        eng.running = True
+        for cmd in ("play black E5", "genmove white", "play black D4"):  # warm: tables, cuDNN
+            assert eng.send(cmd).startswith("=")
+
+        def run():
+            assert eng.send("genmove white").startswith("=")
+    else:
+        cfg = dataclasses.replace(BENCH_CONFIG, n_rollouts=64, noise_weight=0.25, dirichlet_alpha=0.1)
+        roots = _midgame_roots(dev)
+        roots = roots.map(lambda x: x.repeat(8, *[1] * (x.dim() - 1)))
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def run():
+            actions, _ = mcts.search(roots, ev, params, cfg, gen=gen)
+            rules.is_terminal(rules.step(roots, actions), cfg.max_turns)
+
+        run()  # warm: the kernels' build and load, tables, cuDNN
+    seen, rec, outside = _syncs_by_span(run)
+    spans = {name: c.count for name, c in rec.phases.items() if name.startswith("sync.")}
+    assert seen and collections.Counter(seen) == spans, (collections.Counter(seen), spans, outside)
 
 
 @pytest.mark.parametrize(

@@ -2,7 +2,8 @@
 to the original's behaviour; no ``gnugo`` binary is expected here, so the
 absent-binary branch is what runs) and ``utils/metrics`` (the cases of
 ``tests/test_misc.py::test_metrics`` plus what differs in the port:
-blocking on tensors, the profiler trace, the NVTX no-op without a GPU)."""
+blocking on tensors, the profiler trace with a span of the program's
+recorder in it; the recorder itself is ``tests/test_torch_trace.py``'s)."""
 
 import json
 import os
@@ -96,14 +97,20 @@ def test_phase_blocks_on_nested_tensors(monkeypatch):
 
 
 def test_device_trace_and_annotate_without_a_gpu(tmp_path):
-    """On a machine without a GPU the trace holds host events only and
-    ``annotate`` is a no-op context."""
+    """On a machine without a GPU the trace holds host events only, and a
+    span of the program's recorder is a ``user_annotation`` event in it."""
     if torch.cuda.is_available():
         pytest.skip("the CPU-only branches; the card-side ones run in tests/test_torch_cuda.py")
     log_dir = os.path.join(tmp_path, "trace")
-    with metrics.device_trace(log_dir):
-        with metrics.annotate("add"):
-            torch.ones(8) + 1
+    rec = metrics.enable()
+    try:
+        with metrics.device_trace(log_dir):
+            with metrics.span("add"):
+                torch.ones(8) + 1
+    finally:
+        metrics.disable()
     with open(os.path.join(log_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
-    assert any("add" in str(e.get("name", "")) for e in events)
+    assert any(e.get("name") == "add" and e.get("cat") == "user_annotation" for e in events)
+    assert not any(e.get("cat") == "kernel" for e in events)
+    assert rec.phases["add"].count == 1
