@@ -1,25 +1,38 @@
-"""The search's two rollout kernels: wrappers, plain versions, launch counts.
+"""The search's four rollout kernels: wrappers, plain versions, launch counts.
 
-``descend_backprop`` replaces the Pallas kernel
-``bokego_tpu/ops/rollout.py::descend_backprop`` (body ``_kernel``) together
-with the scan of light search steps the JAX package runs around it:
-``rollouts`` consecutive rollouts on every tree, each one fused PUCT descent
-for at most ``levels`` levels, the leaf's cached value (NaN -> 0, flagged
-unvalued), the in-place backprop of N (and Wv) over every traversed edge and
-the root's own stat update.  ``write_rows`` replaces
+K1 and K2 serve the kernel path.  ``descend_backprop`` (K1) replaces the
+Pallas kernel ``bokego_tpu/ops/rollout.py::descend_backprop`` (body
+``_kernel``) together with the scan of light search steps the JAX package
+runs around it: ``rollouts`` consecutive rollouts on every tree, each one
+fused PUCT descent for at most ``levels`` levels, the leaf's cached value
+(NaN -> 0, flagged unvalued), the in-place backprop of N (and Wv) over every
+traversed edge and the root's own stat update.  ``write_rows`` (K2) replaces
 ``bokego_tpu/ops/rollout.py::write_rows`` (body ``_write_rows_kernel``):
 ``pstats[b, node[b]] = rows[b]`` where ``mask[b]``, in place.
 
-The CUDA kernels are in ``csrc/rollout.cu``.  What bounds K1 on the H100 is
-not bytes but latency: a chain of dependent row loads per tree, a launch per
-call and, when every rollout is a launch, the host between them.  Its design
-answers with one launch for all the rollouts up to the next leaf evaluation
-(one warp owns a tree and loops, so re-walked rows come from cache), loads
-of only the lanes and planes the score needs, and a path kept in registers;
-the source's header note has the details.  Each wrapper takes its plain
-PyTorch version only for CPU tensors (the tests); for a CUDA tensor it
-launches the kernel or raises.  ``launches`` counts kernel launches and
-``kernel_rollouts`` the rollouts those launches of K1 ran.
+K3 and K4 serve the non-kernel path (``mcts._descend_batch`` and
+``_backprop_batch``: the GTP engine's default search, simulation mode,
+leaf-parallel search, AlphaZero self-play) and replace no Pallas kernel.
+``descend_path`` (K3) walks every root to a leaf for at most ``levels``
+levels and records the path (:class:`PathDescent`), with each leaf's
+expansion flag and the batch's any-work flag computed on the device;
+``backprop_path`` (K4) adds the visit, the playout reward and the leaf's
+value up that path and updates the roots' own stats.  A rollout of that
+path is then two launches and one host read (the flag), where the plain
+versions make about 25 torch ops and a host read per tree level and three
+sorted ``index_put_`` calls.
+
+The CUDA kernels are in ``csrc/rollout.cu``.  What bounds them on the H100
+is not bytes but latency: a chain of dependent row loads per tree, a launch
+per call and, when every rollout is a launch, the host between them.  K1's
+design answers with one launch for all the rollouts up to the next leaf
+evaluation (one warp owns a tree and loops, so re-walked rows come from
+cache), loads of only the lanes and planes the score needs, and a path kept
+in registers; K3/K4 are bound by one dependent row load a level and then
+the launch; the source's header note has the details.  Each wrapper takes
+its plain PyTorch version only for CPU tensors (the tests); for a CUDA
+tensor it launches the kernel or raises.  ``launches`` counts kernel
+launches and ``kernel_rollouts`` the rollouts those launches of K1 ran.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from bokego_tpu_torch.coords import NN
 from bokego_tpu_torch.search.tree import (
     C_CHILD,
     C_N,
@@ -38,9 +52,11 @@ from bokego_tpu_torch.search.tree import (
     C_WV,
     CH_PAD,
     LANE_PAD,
+    take_rows,
 )
+from bokego_tpu_torch.utils import metrics
 
-launches = {"descend_backprop": 0, "write_rows": 0}
+launches = {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}
 kernel_rollouts = 0  # rollouts run by descend_backprop's kernel launches
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -66,6 +82,13 @@ def _lib():
         lib.bokego_write_rows.argtypes = [_P, _P, _P, _P, _I, _I, _P]
         lib.bokego_write_rows.restype = _I
         lib.bokego_max_levels.restype = _I
+        lib.bokego_descend_path.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, _P,
+        ]
+        lib.bokego_descend_path.restype = _I
+        lib.bokego_backprop_path.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.bokego_backprop_path.restype = _I
         lib._bokego_typed = True
     return lib
 
@@ -292,3 +315,211 @@ def write_rows(
     _raise_on(err, "write_rows")
     launches["write_rows"] += 1
     return pstats
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: the non-kernel search's descent and backprop
+
+
+class PathDescent(NamedTuple):
+    """A recorded PUCT walk per tree; level ``i`` holds the edge taken from
+    the node at depth ``i``.  Columns past a tree's depth hold the leaf and
+    action 0 (the plain version ends its loop once every tree has stopped,
+    so its ``L`` may be smaller than ``levels``).  ``need`` and ``work``
+    are left ``None`` by callers that stack descents (``search/leafpar``)."""
+
+    leaf: torch.Tensor  # (B,) int64 leaf node
+    rows: torch.Tensor  # (B, L) int64 parent node of each traversed edge
+    acts: torch.Tensor  # (B, L) int64 action of each traversed edge
+    leaf_n: torch.Tensor  # (B,) f32 the leaf's edge visit count (before this rollout)
+    depth: torch.Tensor  # (B,) int64 number of traversed edges
+    need: torch.Tensor | None = None  # (B,) bool: expand the leaf
+    work: torch.Tensor | None = None  # () bool: some leaf needs expanding or has no value
+
+
+_flag_workspace: dict[torch.device, torch.Tensor] = {}
+
+
+def _flag_ws(device: torch.device) -> torch.Tensor:
+    """K3's two-int workspace for the batch's any-work flag on ``device``
+    (the OR and a CTA ticket): zeroed once here, and left zeroed by every
+    launch, so launches on one stream at a time share it."""
+    ws = _flag_workspace.get(device)
+    if ws is None:
+        ws = _flag_workspace[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return ws
+
+
+def descend_path_plain(
+    pstats, value, terminal, expanded, root, root_stats, *, c: float, w: float, levels: int,
+    expand_thresh: float,
+) -> PathDescent:
+    """Plain PyTorch version of K3: every tree in lockstep, one row gather
+    per level, finished trees idle, and the loop ends (one host read per
+    level) once every tree has stopped or ``levels`` levels ran.  Exact
+    score ties go to the lowest action, as ``argmax`` gives them.  ``need``
+    is the search's expansion rule: the leaf's visits (the root's own at
+    depth 0) above ``expand_thresh``, not terminal, not expanded; ``work``
+    is ``need`` or an unvalued leaf in any tree."""
+    batch = root.shape[0]
+    dev = root.device
+    cur = root
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    leaf_n = torch.zeros(batch, dtype=torch.float32, device=dev)
+    depth = torch.zeros(batch, dtype=torch.int64, device=dev)
+    rows, acts = [], []
+    for _ in range(levels):
+        row = take_rows(pstats, cur)  # (B, 8, 128)
+        kids = row[:, C_CHILD, :NN]
+        valid = kids >= 0
+        # terminal nodes never have children, so "has any child" alone
+        # decides whether a node is internal
+        internal = valid.any(1) & ~done
+        nf = row[:, C_N, :NN]
+        avg = torch.where(
+            nf > 0,
+            ((1.0 - w) * row[:, C_WQ, :NN] + w * row[:, C_WV, :NN]) / nf.clamp(min=1.0),
+            0.0,
+        )
+        total = torch.where(valid, nf, 0.0).sum(1).clamp(min=1.0)
+        score = -avg + c * row[:, C_PRIOR, :NN] * total.sqrt()[:, None] / (1.0 + nf)
+        score = torch.where(valid, score, float("-inf"))
+        best_a = score.argmax(1)
+        best = kids.gather(1, best_a[:, None])[:, 0].long()
+        rows.append(cur)
+        acts.append(torch.where(internal, best_a, 0))
+        leaf_n = torch.where(internal, nf.gather(1, best_a[:, None])[:, 0], leaf_n)
+        depth = torch.where(internal, depth + 1, depth)
+        cur = torch.where(internal, best, cur)
+        done = done | ~internal
+        with metrics.span("sync.descend_level"):
+            finished = bool(done.all())
+        if finished:
+            break
+    leaf_visits = torch.where(depth > 0, leaf_n, root_stats[:, 0])
+    need = (leaf_visits > expand_thresh) & ~take_rows(terminal, cur) & ~take_rows(expanded, cur)
+    work = need.any() | take_rows(value, cur).isnan().any()
+    return PathDescent(
+        leaf=cur, rows=torch.stack(rows, 1), acts=torch.stack(acts, 1), leaf_n=leaf_n, depth=depth,
+        need=need, work=work,
+    )
+
+
+def descend_path(
+    pstats: torch.Tensor,
+    value: torch.Tensor,
+    terminal: torch.Tensor,
+    expanded: torch.Tensor,
+    root: torch.Tensor,
+    root_stats: torch.Tensor,
+    *,
+    c: float,
+    w: float,
+    levels: int,
+    expand_thresh: float,
+) -> PathDescent:
+    """One PUCT walk per tree from ``root`` to a leaf, at most ``levels``
+    levels, reading ``pstats`` only: the recorded path, each leaf's ``need``
+    and the batch's ``work`` flag (see :func:`descend_path_plain`), all on
+    the tensors' device.  On a CUDA tensor one launch of K3, with ``rows``
+    and ``acts`` ``levels`` wide."""
+    batch, n_pool = _check_pstats(pstats)
+    dev = pstats.device
+    _check("value", value, torch.float32, (batch, n_pool), dev)
+    _check("terminal", terminal, torch.bool, (batch, n_pool), dev)
+    _check("expanded", expanded, torch.bool, (batch, n_pool), dev)
+    _check("root", root, torch.int64, (batch,), dev)
+    _check("root_stats", root_stats, torch.float32, (batch, 3), dev)
+    if levels < 1:
+        raise ValueError(f"levels={levels}: at least 1")
+    if dev.type == "cpu":
+        return descend_path_plain(
+            pstats, value, terminal, expanded, root, root_stats,
+            c=c, w=w, levels=levels, expand_thresh=expand_thresh,
+        )
+    lib = _lib()
+    i64 = dict(dtype=torch.int64, device=dev)
+    leaf, depth = torch.empty(batch, **i64), torch.empty(batch, **i64)
+    rows, acts = torch.empty((batch, levels), **i64), torch.empty((batch, levels), **i64)
+    leaf_n = torch.empty(batch, dtype=torch.float32, device=dev)
+    need = torch.empty(batch, dtype=torch.bool, device=dev)
+    work = torch.empty((), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.bokego_descend_path(
+        pstats.data_ptr(), value.data_ptr(), terminal.data_ptr(), expanded.data_ptr(),
+        root.data_ptr(), root_stats.data_ptr(), leaf.data_ptr(), rows.data_ptr(), acts.data_ptr(),
+        leaf_n.data_ptr(), depth.data_ptr(), need.data_ptr(), _flag_ws(dev).data_ptr(),
+        work.data_ptr(), batch, n_pool, levels, c, w, 1.0 - w, float(expand_thresh), stream,
+    )
+    _raise_on(err, "descend_path")
+    launches["descend_path"] += 1
+    return PathDescent(leaf=leaf, rows=rows, acts=acts, leaf_n=leaf_n, depth=depth, need=need, work=work)
+
+
+def backprop_path_plain(pstats, value, root_stats, leaf, rows, acts, depth, sim_reward, use_value) -> None:
+    """Plain PyTorch version of K4: one ``index_put_(accumulate=True)`` per
+    stat plane.  The edges of one path are distinct, so each takes exactly
+    one add; unused levels add 0."""
+    batch, levels = rows.shape
+    dev = rows.device
+    # NaN = not evaluated yet (possible only at eval_every > 1): backs up 0
+    leaf_val = torch.nan_to_num(take_rows(value, leaf))
+    lvl = torch.arange(levels, device=dev)[None, :]
+    used = lvl < depth[:, None]
+    # the edge at level i leads to the node at depth i + 1: sign (-1)^(depth-i-1)
+    sign = torch.where((depth[:, None] - lvl - 1) % 2 == 0, 1.0, -1.0)
+    b_idx = torch.arange(batch, device=dev)[:, None].expand(batch, levels)
+    plane = torch.zeros_like(rows)
+    root_sign = torch.where(depth % 2 == 0, 1.0, -1.0)
+    pstats.index_put_((b_idx, rows, plane + C_N, acts), used.float(), accumulate=True)
+    root_stats[:, 0] += 1.0
+    # root_stats' columns (N, Wq, Wv) are numbered like the stat planes
+    for use, amount, ch in ((sim_reward is not None, sim_reward, C_WQ), (use_value, leaf_val, C_WV)):
+        if use:
+            pstats.index_put_(
+                (b_idx, rows, plane + ch, acts),
+                torch.where(used, sign * amount[:, None], 0.0),
+                accumulate=True,
+            )
+            root_stats[:, ch] += root_sign * amount
+
+
+def backprop_path(
+    pstats: torch.Tensor,
+    value: torch.Tensor,
+    root_stats: torch.Tensor,
+    desc: PathDescent,
+    sim_reward: torch.Tensor | None,
+    use_value: bool,
+) -> None:
+    """Add the visit, the playout's reward (``sim_reward (B,)`` from the
+    leaf mover's side, into Wq; ``None`` without simulations) and, with
+    ``use_value``, the leaf's cached value (NaN -> 0, into Wv) up every
+    path of ``desc``, the sign flipping per ply, and update the roots' own
+    ``root_stats`` (N, Wq, Wv); all in place.  On a CUDA tensor one launch
+    of K4."""
+    batch, n_pool = _check_pstats(pstats)
+    dev = pstats.device
+    levels = desc.rows.shape[-1]
+    _check("value", value, torch.float32, (batch, n_pool), dev)
+    _check("root_stats", root_stats, torch.float32, (batch, 3), dev)
+    _check("leaf", desc.leaf, torch.int64, (batch,), dev)
+    _check("depth", desc.depth, torch.int64, (batch,), dev)
+    _check("rows", desc.rows, torch.int64, (batch, levels), dev)
+    _check("acts", desc.acts, torch.int64, (batch, levels), dev)
+    if sim_reward is not None:
+        _check("sim_reward", sim_reward, torch.float32, (batch,), dev)
+    if dev.type == "cpu":
+        return backprop_path_plain(
+            pstats, value, root_stats, desc.leaf, desc.rows, desc.acts, desc.depth, sim_reward, use_value
+        )
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.bokego_backprop_path(
+        pstats.data_ptr(), value.data_ptr(), root_stats.data_ptr(), desc.leaf.data_ptr(),
+        desc.rows.data_ptr(), desc.acts.data_ptr(), desc.depth.data_ptr(),
+        None if sim_reward is None else sim_reward.data_ptr(), int(use_value), batch, n_pool, levels,
+        stream,
+    )
+    _raise_on(err, "backprop_path")
+    launches["backprop_path"] += 1

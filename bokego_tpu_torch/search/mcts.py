@@ -3,13 +3,17 @@
 
 Two rollout paths, chosen by ``SearchConfig.use_kernel``.
 
-The non-kernel path (the serving default) is plain torch: a PUCT walk from
-every root to a leaf, one level at a time with all trees in lockstep
-(:func:`_descend_batch`), then the leaf evaluation with one batched net
+The non-kernel path (the serving default): a PUCT walk from every root to a
+leaf (:func:`_descend_batch`, which also decides which leaves to expand and
+whether any tree has work), then the leaf evaluation with one batched net
 forward and the expansion, then the backprop of the leaf's value up the
 recorded path (:func:`_backprop_batch`): the exact reference cadence at
 ``eval_every == 1``; at ``eval_every > 1`` the backprop comes first and
-evaluation runs only on every E-th step, as on the kernel path.
+evaluation runs only on every E-th step, as on the kernel path.  On the card
+the walk and the backprop are one launch each (``ops/rollout``'s K3
+``descend_path`` and K4 ``backprop_path``), and the host reads the device
+once a rollout, the work flag, on eval steps; on the CPU they are the plain
+torch versions, all trees in lockstep with a host read per tree level.
 
 On the kernel path rollouts run through the fused descend/backprop kernel
 (``ops/rollout.descend_backprop``), which also applies the root's own stat
@@ -240,60 +244,26 @@ def _rollout_group(
     return evaluate_leaves(trees, ev, params, cfg, res) if evaluate else trees
 
 
-class _Descent(NamedTuple):
-    """A recorded PUCT walk per tree; level ``i`` holds the edge taken from
-    the node at depth ``i`` (columns past a tree's depth are unused)."""
-
-    leaf: torch.Tensor  # (B,) int64 leaf node
-    rows: torch.Tensor  # (B, L) int64 parent node of each traversed edge
-    acts: torch.Tensor  # (B, L) int64 action of each traversed edge
-    leaf_n: torch.Tensor  # (B,) f32 the leaf's edge visit count (before this rollout)
-    depth: torch.Tensor  # (B,) int64 number of traversed edges
+# A recorded PUCT walk per tree, with its leaves' expansion flags and the
+# batch's any-work flag (``ops/rollout.PathDescent``).
+_Descent = rollout.PathDescent
 
 
 def _descend_batch(trees: Tree, cfg: SearchConfig, w: float) -> _Descent:
-    """PUCT walk from every root to a leaf, all trees in lockstep: one row
-    gather per level, finished trees idle, and the loop ends (one host sync
-    per level) once every tree has stopped or ``max_depth - 1`` levels ran.
-    Exact score ties go to the lowest action, as ``argmax`` gives them."""
+    """PUCT walk from every root to a leaf, at most ``max_depth - 1``
+    levels, with each leaf's ``need`` (visits above ``expand_thresh``, not
+    terminal, not expanded) and the batch's ``work`` flag (``need`` or an
+    unvalued leaf anywhere): one launch of K3 (``rollout.descend_path``) on
+    the card, on the CPU its plain version, all trees in lockstep with one
+    host read per level.  Exact score ties go to the lowest action."""
     with metrics.span("search.descend"):
-        c = cfg.exploration_weight
-        batch = trees.root.shape[0]
-        dev = trees.root.device
-        cur = trees.root
-        done = torch.zeros(batch, dtype=torch.bool, device=dev)
-        leaf_n = torch.zeros(batch, dtype=torch.float32, device=dev)
-        depth = torch.zeros(batch, dtype=torch.int64, device=dev)
-        rows, acts = [], []
-        for _ in range(cfg.max_depth - 1):
-            row = take_rows(trees.pstats, cur)  # (B, 8, 128)
-            kids = row[:, tr.C_CHILD, :NN]
-            valid = kids >= 0
-            # terminal nodes never have children, so "has any child" alone
-            # decides whether a node is internal
-            internal = valid.any(1) & ~done
-            nf = row[:, tr.C_N, :NN]
-            avg = torch.where(
-                nf > 0,
-                ((1.0 - w) * row[:, tr.C_WQ, :NN] + w * row[:, tr.C_WV, :NN]) / nf.clamp(min=1.0),
-                0.0,
-            )
-            total = torch.where(valid, nf, 0.0).sum(1).clamp(min=1.0)
-            score = -avg + c * row[:, tr.C_PRIOR, :NN] * total.sqrt()[:, None] / (1.0 + nf)
-            score = torch.where(valid, score, float("-inf"))
-            best_a = score.argmax(1)
-            best = kids.gather(1, best_a[:, None])[:, 0].long()
-            rows.append(cur)
-            acts.append(torch.where(internal, best_a, 0))
-            leaf_n = torch.where(internal, nf.gather(1, best_a[:, None])[:, 0], leaf_n)
-            depth = torch.where(internal, depth + 1, depth)
-            cur = torch.where(internal, best, cur)
-            done = done | ~internal
-            with metrics.span("sync.descend_level"):
-                finished = bool(done.all())
-            if finished:
-                break
-        return _Descent(leaf=cur, rows=torch.stack(rows, 1), acts=torch.stack(acts, 1), leaf_n=leaf_n, depth=depth)
+        desc = rollout.descend_path(
+            trees.pstats, trees.value, trees.terminal, trees.expanded, trees.root, trees.root_stats,
+            c=cfg.exploration_weight, w=w, levels=cfg.max_depth - 1, expand_thresh=cfg.expand_thresh,
+        )
+        if trees.pstats.is_cuda:
+            metrics.count("search.path_kernel")
+        return desc
 
 
 def _backprop_batch(
@@ -302,34 +272,11 @@ def _backprop_batch(
     """Add the visit, the playout's reward (``sim_reward (B,)`` from the
     leaf mover's side; ``None`` without simulations) and the leaf's cached
     value up every recorded path, the sign flipping per ply, and update the
-    roots' own stats (in place): one ``index_put_(accumulate=True)`` per
-    stat plane.  The edges of one path are distinct, so each takes exactly
-    one add; unused levels add 0."""
+    roots' own stats (in place): one launch of K4 (``rollout.backprop_path``)
+    on the card, on the CPU one ``index_put_(accumulate=True)`` per stat
+    plane."""
     with metrics.span("search.backprop"):
-        batch, levels = desc.rows.shape
-        dev = desc.rows.device
-        # NaN = not evaluated yet (possible only at eval_every > 1): backs up 0
-        leaf_val = torch.nan_to_num(take_rows(trees.value, desc.leaf))
-        lvl = torch.arange(levels, device=dev)[None, :]
-        used = lvl < desc.depth[:, None]
-        # the edge at level i leads to the node at depth i + 1: sign (-1)^(depth-i-1)
-        sign = torch.where((desc.depth[:, None] - lvl - 1) % 2 == 0, 1.0, -1.0)
-        b_idx = torch.arange(batch, device=dev)[:, None].expand(batch, levels)
-        plane = torch.zeros_like(desc.rows)
-        root_sign = torch.where(desc.depth % 2 == 0, 1.0, -1.0)
-        trees.pstats.index_put_(
-            (b_idx, desc.rows, plane + tr.C_N, desc.acts), used.float(), accumulate=True
-        )
-        trees.root_stats[:, 0] += 1.0
-        # root_stats' columns (N, Wq, Wv) are numbered like the stat planes
-        for use, amount, ch in ((sim_reward is not None, sim_reward, tr.C_WQ), (use_value, leaf_val, tr.C_WV)):
-            if use:
-                trees.pstats.index_put_(
-                    (b_idx, desc.rows, plane + ch, desc.acts),
-                    torch.where(used, sign * amount[:, None], 0.0),
-                    accumulate=True,
-                )
-                trees.root_stats[:, ch] += root_sign * amount
+        rollout.backprop_path(trees.pstats, trees.value, trees.root_stats, desc, sim_reward, use_value)
         return trees
 
 
@@ -376,17 +323,11 @@ def _search_step_plain(
     every leaf is played out on every step, whether or not the step
     evaluates."""
     desc = _descend_batch(trees, cfg, _mix_weight(cfg, ev.has_value))
-    leaves = desc.leaf
-    leaf_visits = torch.where(desc.depth > 0, desc.leaf_n, trees.root_stats[:, 0])
-    need = (
-        (leaf_visits > cfg.expand_thresh)
-        & ~take_rows(trees.terminal, leaves)
-        & ~take_rows(trees.expanded, leaves)
-    )
+    leaves, need = desc.leaf, desc.need
     work = False
     if _is_eval_step(cfg, step_idx):
         with metrics.span("sync.work_flag"):
-            work = bool(need.any() | take_rows(trees.value, leaves).isnan().any())
+            work = bool(desc.work)
     sim_r = None if cfg.no_sim else _simulate(gen, gather_states(trees.nodes, leaves), ev, params, cfg)
     if cfg.eval_every > 1:
         # delayed valuation, as on the kernel path: backprop with the value

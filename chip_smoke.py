@@ -30,10 +30,14 @@ Phases (any failure exits non-zero; nothing is caught):
     trees and chosen actions after ``run_search`` at eval_every 1 and 2, and
     again after ``advance_root`` + ``compact`` + ``expand_roots`` and a second
     search; a search continued with and without ``compact`` picks the same;
+ 8b. K3 and K4 against their plain versions at the served search's shapes
+    (B=1, Nmax=1024) and at B=64, on trees grown with the shipped nets, bit
+    for bit; timed beside their byte bounds and the plain versions, and
+    their device time a launch in a profiled ``-r 100`` genmove;
  9. the serving path: the GTP engine in process with the shipped
     ``policy_17.pt`` and ``value_r2.pt``, a scripted session answered twice,
     in the default configuration (``-r 400``, non-kernel search, one tree:
-    no kernel launch) and in the ``--fast`` one (``--forest 8 -r 400``: K1
+    one K3 and one K4 launch a rollout) and in the ``--fast`` one (``--forest 8 -r 400``: K1
     and K2, launch counts read around the session): framing, every generated
     vertex legal on a ``NativeBoard`` referee, no rebuild where the played
     child was in the tree, ``analyze``, ``final_score``, SGF out and in;
@@ -60,7 +64,7 @@ Phases (any failure exits non-zero; nothing is caught):
     CPU: ``run_search`` at eval_every 1 and 2 and ``run_search_k`` at K = 4;
 13. one served session per search-mode flag with the shipped nets: ``--leaf-batch
     8`` and ``--leaf-batch 16 --forest 8`` at ``-r 400``, ``--simulate`` at
-    ``-r SIM_ROLLOUTS``: no kernel launch, every root's visits grown by
+    ``-r SIM_ROLLOUTS``: no K1/K2 launch, K3 for every descent, every root's visits grown by
     exactly the rollouts of the chunks run, every vertex legal on the
     referee; s/genmove, rollouts/s, leaf evaluations with their batch and
     plies per playout are printed.
@@ -137,7 +141,7 @@ Phases (any failure exits non-zero; nothing is caught):
     levels=6;
 31. batched simulation throughput (``bokego_tpu_torch.sim_throughput``) at
     B=SIM_BATCH from ply SIM_PLIES, cut to SIM_TOOL_ROLLOUTS rollouts and
-    SIM_RUNS timed run: no kernel launch, every root's visits grown by
+    SIM_RUNS timed run: no K1/K2 launch, every root's visits grown by
     exactly the runs' rollouts, the JAX tool's result line printed.
 
 32. the headline bench, ``python -m bokego_tpu_torch.bench``, as a process
@@ -161,7 +165,7 @@ Phases (any failure exits non-zero; nothing is caught):
     levels=6, bit for bit, timed;
 35. ``serving_latency`` at ``--time LATENCY_SECONDS``, one trial, in the
     default configuration and with a forest of 8: root visits grew on both
-    paths, no kernel launch;
+    paths, no K1/K2 launch, one K3 and one K4 launch a rollout;
 36. ``python -m bokego_tpu_torch.parallel.scaling 2 SCALING_K --device
     cuda:0 --backend gloo`` (the bench's nets, its weight files named): exit
     0, actions and scores IDENTICAL.
@@ -484,7 +488,9 @@ def check_plain_search(dev) -> None:
             and int(gpu.n_nodes.max()) < int(loose.n_nodes.min()),
             "a search continued with and without compact chose differently",
         )
-    check(rollout.launches == {"descend_backprop": 0, "write_rows": 0}, "the non-kernel search launched a kernel")
+    n = rollout.launches
+    check(n["descend_backprop"] == n["write_rows"] == 0, f"the non-kernel search launched K1 or K2: {n}")
+    check(n["descend_path"] == n["backprop_path"] > 0, f"the non-kernel search's GPU rollouts are not one K3 and one K4 each: {n}")
     log("non-kernel search: GPU equals CPU at eval_every 1 and 2, before and after advance/compact/expand; compact leaves choices unchanged")
 
 
@@ -684,7 +690,9 @@ def serve_session(dev, params, fast: bool) -> dict:
     ok("quit", "")
     check(eng.send("protocol_version") is None, f"{name}: the engine answered after quit")
     counts = dict(rollout.launches)
-    check(all((n > 0) == fast for n in counts.values()), f"{name}: kernel launches of the session {counts}")
+    check((counts["descend_backprop"] > 0) == (counts["write_rows"] > 0) == fast
+          and (counts["descend_path"] > 0) == (counts["backprop_path"] > 0) == (not fast),
+          f"{name}: kernel launches of the session {counts}")
     return counts
 
 
@@ -742,7 +750,9 @@ def check_leaf_parallel_search(dev) -> None:
         wq = gpu.root_stats[:, 1].tolist()
         check(all(abs(x) <= 24 for x in wq) and len(set(wq)) > 1, f"simulation mode, {what}: root Wq {wq}")
         check(bool(gpu.pstats[:, :, 1].any()), f"simulation mode, {what}: no reward reached an edge")
-    check(rollout.launches == {"descend_backprop": 0, "write_rows": 0}, "leaf-parallel search or simulation mode launched a kernel")
+    n = rollout.launches
+    check(n["descend_backprop"] == n["write_rows"] == 0 and n["descend_path"] > 0,
+          f"leaf-parallel search or simulation mode launched K1 or K2, or descended without K3: {n}")
     log("simulation mode (one-hot playout policy): GPU equals CPU at eval_every 1 and 2 and leaf-parallel at K=4 (B=4, 24 rollouts)")
 
 
@@ -860,7 +870,8 @@ def serve_search_mode(dev, params, flags: list[str], moves: int) -> None:
     )
     ok("quit", "")
     check(eng.send("protocol_version") is None, f"{name}: the engine answered after quit")
-    check(rollout.launches == {"descend_backprop": 0, "write_rows": 0}, f"{name}: kernel launches {rollout.launches}")
+    n = rollout.launches
+    check(n["descend_backprop"] == n["write_rows"] == 0 and n["descend_path"] > 0, f"{name}: kernel launches {n}")
 
 
 def _timed_match(black_flags: str, white_flags: str, path: str) -> tuple[bool, float, list]:
@@ -964,6 +975,108 @@ def serve_process(work: str) -> None:
         f"{'equal' if texts[0] == texts[1] else 'NOT equal'}")
 
 
+def check_path_kernels(dev, params) -> dict:
+    """Phase 8b: K3 ``descend_path`` and K4 ``backprop_path`` against their
+    plain versions, bit for bit, at the served search's shapes (the CLI's
+    ``-r 100`` configuration: B=1, Nmax=1024, 63 levels) and at B=64, on
+    trees grown by the non-kernel search with the shipped nets from seeded
+    random-game roots; timed (device ms from a CUDA graph, eager ms from
+    Python, the plain versions eager: their descent reads the host once a
+    level), with the bytes a launch needs and their bound, and each
+    kernel's device time a launch on the main path (a profiled ``genmove``
+    of that configuration).  Returns the records by kernel and batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bokego_tpu_torch import cli
+    from bokego_tpu_torch.config import EngineConfig
+    from bokego_tpu_torch.gtp.engine import GTPEngine
+    from bokego_tpu_torch.ops import rollout
+    from bokego_tpu_torch.search import mcts
+
+    ev = mcts.net_evaluator()
+    cfg = cli.search_config(cli.build_parser().parse_args(["-r", "100", "--no-ponder"]), dev)
+    check(not cfg.use_kernel and cfg.max_nodes == 1024, f"unexpected served search config {cfg}")
+    levels = cfg.max_depth - 1
+    records = {}
+    for batch in (1, 64):
+        roots = _random_roots(batch, 12, seed=5).map(lambda x: x.to(dev))
+        trees = mcts.run_search(mcts.init_trees(roots, ev, params, cfg), ev, params, cfg, 300)
+        args = (trees.pstats, trees.value, trees.terminal, trees.expanded, trees.root, trees.root_stats)
+        kw = dict(c=cfg.exploration_weight, w=mcts._mix_weight(cfg, True), levels=levels, expand_thresh=cfg.expand_thresh)
+        k = rollout.descend_path(*args, **kw)
+        p = rollout.descend_path_plain(*args, **kw)
+        torch.cuda.synchronize()
+        width = p.rows.shape[1]
+        check(all(torch.equal(getattr(k, f), getattr(p, f)) for f in ("leaf", "depth", "leaf_n", "need", "work"))
+              and torch.equal(k.rows[:, :width], p.rows) and torch.equal(k.acts[:, :width], p.acts),
+              f"K3 differs from its plain version at B={batch}")
+        p_k, p_p = trees.pstats.clone(), trees.pstats.clone()
+        rs_k, rs_p = trees.root_stats.clone(), trees.root_stats.clone()
+        rollout.backprop_path(p_k, trees.value, rs_k, k, None, True)
+        rollout.backprop_path_plain(p_p, trees.value, rs_p, p.leaf, p.rows, p.acts, p.depth, None, True)
+        torch.cuda.synchronize()
+        check(torch.equal(p_k, p_p) and torch.equal(rs_k, rs_p), f"K4 differs from its plain version at B={batch}")
+        del p_k, p_p
+
+        def descend():
+            rollout.descend_path(*args, **kw)
+
+        def descend_plain():
+            rollout.descend_path_plain(*args, **kw)
+
+        scratch, rs = trees.pstats.clone(), trees.root_stats.clone()
+
+        def backprop():
+            rollout.backprop_path(scratch, trees.value, rs, k, None, True)
+
+        def backprop_plain():
+            rollout.backprop_path_plain(scratch, trees.value, rs, p.leaf, p.rows, p.acts, p.depth, None, True)
+
+        depth = k.depth
+        rows_loaded = int(torch.clamp(depth + 1, max=levels).sum())
+        used = int(depth.sum())
+        # K3: 4 planes x 81 actions of every loaded row, the root and its N,
+        # the leaf's value and flags, the outputs (path, leaf, depth, leaf's
+        # N, need, flag); K4: the path's edges read back and two stat planes
+        # read and written at each, the leaf, depth, value and root stats.
+        n_bytes = {
+            "descend_path": rows_loaded * 4 * 81 * 4 + batch * (8 + 4 + 6 + 16 * levels + 8 + 8 + 4 + 1) + 1,
+            "backprop_path": used * (16 + 2 * 8) + batch * (8 + 8 + 4 + 2 * 12),
+        }
+        for name, fn, plain in (("descend_path", descend, descend_plain), ("backprop_path", backprop, backprop_plain)):
+            ms, eager = time_ms(fn, 200)
+            for _ in range(2):
+                plain()
+            plain_eager = _events_ms(lambda: [plain() for _ in range(20)], 20)
+            b_ms, b_by = bound_ms(n_bytes[name], 0)
+            records[(name, batch)] = dict(ms=ms, eager_ms=eager, plain_eager_ms=plain_eager, bound_ms=b_ms,
+                                          bound_by=b_by, bytes=n_bytes[name])
+            log(f"K{3 if name == 'descend_path' else 4} {name}: B={batch} Nmax={cfg.max_nodes} levels={levels} "
+                f"mean_depth={depth.float().mean():.3f} max_depth={int(depth.max())} equal to its plain version; "
+                f"kernel_ms={ms:.5f} eager_ms={eager:.5f} plain_eager_ms={plain_eager:.5f} "
+                f"bound_ms={b_ms:.7f} ({b_by}, {n_bytes[name]} B)")
+        del scratch, trees
+
+    # the main path: one profiled genmove of the -r 100 engine
+    ecfg = EngineConfig(time_lim=None, n_rollouts=100, pondering=False)
+    eng = GTPEngine(ev, params, cfg, ecfg, device=dev)
+    eng.running = True
+    for cmd in ("play black E5", "genmove white", "play black D4"):
+        check(eng.send(cmd).startswith("="), f"served engine: {cmd}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        check(eng.send("genmove white").startswith("="), "served engine: genmove")
+        torch.cuda.synchronize()
+    for name in ("descend_path", "backprop_path"):
+        evs = [e for e in prof.key_averages() if f"{name}_kernel" in e.key]
+        calls = sum(e.count for e in evs)
+        us = sum(e.self_device_time_total for e in evs)
+        check(calls > 0, f"the profiled genmove launched no {name}")
+        records[(name, "main_path")] = dict(launches=calls, device_us_per_launch=us / calls)
+        log(f"{name} on the main path (-r 100 genmove): {calls} launches, {us / calls:.3f} us a launch on the device")
+    return records
+
+
 def serving_phases(dev, roots):
     """Phases 7-13; returns (records, launch counts) of K1/K2 on the --fast
     engine's path."""
@@ -973,6 +1086,7 @@ def serving_phases(dev, roots):
     params = {"policy": nets.load_policy(POLICY_WEIGHTS, device=dev), "value": nets.load_value(VALUE_WEIGHTS, device=dev)}
     records = check_serving_kernels(dev, params, roots)
     check_plain_search(dev)
+    check_path_kernels(dev, params)
     default_counts = serve_session(dev, params, fast=False)
     fast_counts = serve_session(dev, params, fast=True)
     log(f"served sessions: launches default {default_counts}, --fast {fast_counts}")
@@ -1155,7 +1269,7 @@ def training_phases(dev) -> dict:
     del pol, val, state
 
     counts = dict(rollout.launches)
-    check(all(v == 0 for v in counts.values()), f"kernel launches on the training phases: {counts}")
+    check(counts["descend_backprop"] == counts["write_rows"] == 0, f"K1/K2 launches on the training phases: {counts}")
     log(f"training phases: kernel launches {counts}")
     del policy, value
     torch.cuda.empty_cache()
@@ -1650,7 +1764,7 @@ def tool_phases(dev, params) -> tuple[dict, dict, dict]:
     t0 = time.monotonic()
     res, rate = sim_throughput.run(dev, SIM_BATCH, SIM_TOOL_ROLLOUTS, SIM_PLIES, runs=SIM_RUNS)
     sim_counts = dict(rollout.launches)
-    check(not any(sim_counts.values()), f"sim_throughput launched a kernel: {sim_counts}")
+    check(sim_counts["descend_backprop"] == sim_counts["write_rows"] == 0, f"sim_throughput launched K1/K2: {sim_counts}")
     check(bool((res.trees.root_stats[:, 0] == (SIM_RUNS + 1) * SIM_TOOL_ROLLOUTS).all()),
           "sim_throughput: root visits are not the runs' rollouts")
     check(rate is not None and rate > 0 and res.forwards[0] >= SIM_TOOL_ROLLOUTS, f"sim_throughput: rate {rate}")
@@ -1806,7 +1920,9 @@ def bench_phases(dev) -> tuple[dict, dict, dict, dict]:
             log(f"serving_latency (forest {forest}, --time {LATENCY_SECONDS}): {path}: {grown / dt:,.0f} rollouts/s "
                 f"(root visits grew by {grown:.0f} in {dt:.3f} s)")
         del eng
-    check(not any(rollout.launches.values()), f"serving_latency's default search launched a kernel: {rollout.launches}")
+    n = rollout.launches
+    check(n["descend_backprop"] == n["write_rows"] == 0 and n["descend_path"] == n["backprop_path"] > 0,
+          f"serving_latency's default search launched K1/K2, or rolled out without K3/K4: {n}")
     figures["serving_latency"] = latency
 
     # 36. parallel.scaling over 2 gloo ranks sharing cuda:0
@@ -2019,7 +2135,8 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
     counts, k1_rollouts = dict(rollout.launches), rollout.kernel_rollouts
-    check(all(n > 0 for n in counts.values()), f"a kernel of the main path never launched: {counts}")
+    check(counts["descend_backprop"] > 0 and counts["write_rows"] > 0, f"a kernel of the main path never launched: {counts}")
+    check(counts["descend_path"] == counts["backprop_path"] == 0, f"the kernel path launched K3/K4: {counts}")
     groups = mcts.rollout_groups(CFG.n_rollouts, CFG.eval_every)
     check(len(groups) == 51, f"{len(groups)} rollout groups a move, expected 51")
     check(counts["descend_backprop"] == 51 * MOVES, f"K1 launches {counts['descend_backprop']}, expected {51 * MOVES}")

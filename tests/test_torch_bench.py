@@ -341,7 +341,7 @@ def test_one_move_matches_jax_bench(kernel, moves, batch, n_rollouts):
         forwards.append(len(counts.forwards))
         assert_states_equal(js, ts)
         np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
-        assert counts.launches == {"descend_backprop": 0, "write_rows": 0}  # CPU tensors: the plain versions
+        assert counts.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}  # CPU tensors: the plain versions
     assert int(ts.turn.min()) == moves
     if moves > jcfg.max_turns:
         assert bool(tdone.all())

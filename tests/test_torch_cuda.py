@@ -1,5 +1,6 @@
-"""GPU tests of the port: the CUDA kernels against their plain versions (at
-the self-play and at the serving shapes), GPU self-play, the non-kernel
+"""GPU tests of the port: the CUDA kernels against their plain versions (K1
+and K2 at the self-play and at the serving shapes, K3 and K4 on synthetic
+trees up to the search's depth bound), GPU self-play, the non-kernel
 search, leaf-parallel search and simulation mode (with the one-hot playout
 policy, whose draws cannot matter) against their CPU runs, a short engine
 session per configuration on the card, the profiler hooks, and the
@@ -26,7 +27,7 @@ from bokego_tpu_torch.models import nets
 from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.parallel.selfplay import selfplay
 from bokego_tpu_torch.search import leafpar, mcts, tree
-from bokego_tpu_torch.search.tree import C_WQ
+from bokego_tpu_torch.search.tree import C_CHILD, C_N, C_PRIOR, C_WQ, C_WV
 from bokego_tpu_torch.utils import metrics
 from tests.torch_fake_eval import fake_evaluator, onehot_evaluator, stones_evaluator
 
@@ -129,7 +130,9 @@ def test_selfplay_gpu_equals_cpu(dev):
     cfg = _cfg(3)
     rollout.reset_launches()
     r_gpu = selfplay(None, fake_evaluator(), cfg, 8, 3, 40, device=dev)
-    assert all(n > 0 for n in rollout.launches.values())
+    assert rollout.launches["write_rows"] > 0
+    # the kernel path bypasses the non-kernel search's K3/K4
+    assert rollout.launches["descend_path"] == rollout.launches["backprop_path"] == 0
     # 40 rollouts at eval_every=2: step 0, 19 pairs, one light step; 3 moves
     assert rollout.launches["descend_backprop"] == 3 * len(mcts.rollout_groups(40, cfg.eval_every)) == 63
     assert rollout.kernel_rollouts == 3 * 40
@@ -198,7 +201,8 @@ def test_non_kernel_search_gpu_equals_cpu(dev, eval_every):
     for f in ("pstats", "root_stats", "n_nodes", "parent", "action", "expanded", "terminal", "root"):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
     assert torch.equal(gpu.value.cpu().nan_to_num(7.0), cpu.value.nan_to_num(7.0))
-    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0}
+    # the GPU run's 120 rollouts: one K3 and one K4 launch each, no K1/K2
+    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 120, "backprop_path": 120}
 
 
 TREE_FIELDS = ("pstats", "root_stats", "n_nodes", "parent", "action", "expanded", "terminal", "root")
@@ -233,7 +237,9 @@ def test_leaf_parallel_search_gpu_equals_cpu(dev, K, ev_fn):
     if K == 1:
         seq = mcts.run_search(mcts.init_trees(_midgame_roots(dev), ev, None, cfg), ev, None, cfg, 96)
         assert torch.equal(seq.pstats, out[0].pstats) and torch.equal(seq.root_stats, out[0].root_stats)
-    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0}
+    # K descents a step through K3 on the GPU; leafpar's own backprop, no K4
+    n_k3 = 96 + (96 if K == 1 else 0)
+    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": n_k3, "backprop_path": n_k3 - 96}
 
 
 @pytest.mark.parametrize("leaf_batch", [1, 4])
@@ -278,16 +284,20 @@ def test_profiler_hooks_on_the_card(dev, tmp_path):
     assert any(e.self_device_time_total > 0 for e in prof.key_averages())
 
 
-def _syncs_by_span(run):
+def _syncs_by_span(run, stacks: list | None = None):
     """``run()`` with the program's recorder on, under CUDA's sync debug
     mode: the innermost span open at each synchronisation it warns of, and
-    the recorder; and where each synchronisation outside every span was."""
+    the recorder; and where each synchronisation outside every span was.
+    ``stacks``, where given, takes the names of all the spans open at each
+    synchronisation, outermost first."""
     seen, outside = [], []
     rec = metrics.enable()
 
     def innermost():
-        open_spans = [s for s in rec.spans if s[2] == 0]
-        return open_spans[-1][0] if open_spans else None
+        open_spans = [s[0] for s in rec.spans if s[2] == 0]
+        if stacks is not None:
+            stacks.append(open_spans)
+        return open_spans[-1] if open_spans else None
 
     def show(message, category, filename, lineno, *args, **kwargs):
         if "called a synchronizing CUDA operation" in str(message):
@@ -343,6 +353,136 @@ def test_sync_spans_count_every_sync_on_the_card(dev, path):
     assert seen and collections.Counter(seen) == spans, (collections.Counter(seen), spans, outside)
 
 
+def test_served_rollout_is_two_launches_and_one_read(dev):
+    """A served ``genmove`` at ``eval_every=1`` (the engine's default search,
+    the nets on the card): every rollout is one K3 and one K4 launch, and
+    outside the evaluations the host reads the device once a rollout, the
+    work flag; no descent level is read."""
+    params = {"policy": nets.init_policy(device=dev).eval(), "value": nets.init_value(device=dev).eval()}
+    ecfg = EngineConfig(time_lim=None, n_rollouts=32, pondering=False)
+    eng = GTPEngine(mcts.net_evaluator(), params, SearchConfig(expand_thresh=2, max_nodes=512), ecfg, device=dev)
+    eng.running = True
+    for cmd in ("play black E5", "genmove white", "play black D4"):  # warm: tables, cuDNN, the kernels' build
+        assert eng.send(cmd).startswith("=")
+    rollout.reset_launches()
+    stacks = []
+
+    def run():
+        assert eng.send("genmove white").startswith("=")
+
+    seen, rec, outside = _syncs_by_span(run, stacks)
+    n = int(rec.counters["search.rollouts"])
+    assert n == 32 == rec.counters["search.path_kernel"] == rec.phases["search.descend"].count
+    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": n, "backprop_path": n}
+    in_rollouts = [
+        s[-1] for s in stacks
+        if "gtp.search" in s and "search.eval_and_expand" not in s and "search.init_trees" not in s
+        and s[-1] != "sync.pool_full"  # once a chunk of 8, before it
+    ]
+    assert in_rollouts == ["sync.work_flag"] * n, (collections.Counter(in_rollouts), outside)
+    assert "sync.descend_level" not in seen and "sync.descend_level" not in rec.phases
+
+
+def _path_trees(dev, batch: int, n_pool: int, seed: int):
+    """Synthetic search trees for K3/K4: every child has a higher slot than
+    its parent (one to three higher, so that walks run deep), about 3 % of
+    the nodes and every node past the pool's end are leaves, integer visit
+    counts, random Wq/Wv and priors (some 0), a quarter of the rows with
+    all valid children tied exactly, random terminal and expanded flags,
+    values with NaNs and infinities, roots in the first eighth of the pool.
+    Tree 0 is a chain of exact ties that runs past the depth bound to an
+    unvalued node; where there are more trees, tree 1 is such a chain that
+    ends at a leaf to expand at depth 40, and the last tree's root is a
+    leaf."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    node = torch.arange(n_pool, device=dev)[None, :, None]
+    child = node + 1 + (rand(batch, n_pool, 81) * 3).long()
+    valid = (rand(batch, n_pool, 81) < 0.06) & (rand(batch, n_pool, 1) > 0.03) & (child < n_pool)
+    nv = (rand(batch, n_pool, 81) * 12).floor()
+    stats = {C_N: nv, C_WQ: (rand(batch, n_pool, 81) * 2 - 1) * nv, C_WV: (rand(batch, n_pool, 81) * 2 - 1) * nv,
+             C_PRIOR: rand(batch, n_pool, 81) * (rand(batch, n_pool, 81) > 0.1)}
+    tied = rand(batch, n_pool, 1) < 0.25
+    for ch, x in stats.items():
+        stats[ch] = torch.where(tied, x[:, :, :1].expand_as(x), x)
+    # chains: node i ties between slot i + 1 (at a lower action) and slot i + 2
+    lane = torch.arange(81, device=dev)
+    chain = node[0, :, 0, None] + 1 + (lane[None, :] == 40)
+    for b in range(min(batch, 2)):
+        valid[b] = ((lane == 7) | (lane == 40))[None, :] & (chain < n_pool) & (node[0] < (n_pool, 40)[b])
+        child[b] = chain
+        for ch in stats:
+            stats[ch][b] = stats[ch][b, :, :1].expand(-1, 81).clone()
+        stats[C_N][b] = 5.0
+    pstats = torch.zeros((batch, n_pool, 8, 128), device=dev)
+    pstats[:, :, C_CHILD] = -1.0
+    pstats[:, :, C_CHILD, :81] = torch.where(valid, child.float(), -1.0)
+    for ch, x in stats.items():
+        pstats[:, :, ch, :81] = x
+    value = rand(batch, n_pool) * 2 - 1
+    value[rand(batch, n_pool) < 0.3] = float("nan")
+    value[rand(batch, n_pool) < 0.02] = float("inf")
+    value[rand(batch, n_pool) < 0.02] = float("-inf")
+    terminal = rand(batch, n_pool) < 0.1
+    expanded = rand(batch, n_pool) < 0.3
+    root = (rand(batch) * (n_pool // 8)).long()
+    root_stats = torch.stack([(rand(batch) * 8).floor(), rand(batch) * 2 - 1, rand(batch) * 2 - 1], -1)
+    root[: min(batch, 2)] = 0
+    value[0, SearchConfig().max_depth - 1] = float("nan")
+    if batch > 2:
+        terminal[1, 40] = expanded[1, 40] = False
+        root[-1], root_stats[-1, 0] = n_pool - 1, 0.0
+    return pstats, value, terminal, expanded, root, root_stats
+
+
+@pytest.mark.parametrize("sim", [False, True], ids=["no_sim", "sim"])
+@pytest.mark.parametrize("use_value", [True, False], ids=["value", "no_value"])
+@pytest.mark.parametrize("w", [1.0, 0.5])
+@pytest.mark.parametrize("batch", [1, 8, 64, 1024])
+def test_path_kernels_match_plain(dev, batch, w, use_value, sim):
+    """K3 and K4 against their plain versions on the same tensors, bit for
+    bit: the walk (leaf, depth, leaf's visits, the path over the plain
+    version's levels, leaf and action 0 past them), ``need`` and the work
+    flag, then ``pstats`` and ``root_stats`` after the backprop; walks past
+    32 levels up to ``max_depth - 1``, exact score ties, a work flag that
+    falls back to false in the next launch."""
+    levels = SearchConfig().max_depth - 1
+    pstats, value, terminal, expanded, root, root_stats = _path_trees(dev, batch, 256, batch + int(4 * w))
+    kw = dict(c=1.5, w=w, levels=levels, expand_thresh=3)
+    rollout.reset_launches()
+    k = rollout.descend_path(pstats, value, terminal, expanded, root, root_stats, **kw)
+    p = rollout.descend_path_plain(pstats, value, terminal, expanded, root, root_stats, **kw)
+    torch.cuda.synchronize()
+    width = p.rows.shape[1]
+    for f in ("leaf", "depth", "leaf_n", "need", "work"):
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+    assert torch.equal(k.rows[:, :width], p.rows) and torch.equal(k.acts[:, :width], p.acts)
+    assert torch.equal(k.rows[:, width:], k.leaf[:, None].expand(-1, levels - width))
+    assert not bool(k.acts[:, width:].any())
+    assert int(k.depth[0]) == levels and bool(k.work)  # tree 0 runs out of levels, through ties
+    if batch > 2:
+        assert k.depth[[1, -1]].tolist() == [40, 0] and k.need[[1, -1]].tolist() == [True, False]
+
+    sim_reward = torch.where(torch.rand(batch, device=dev) < 0.5, 1.0, -1.0) if sim else None
+    p_k, p_p = pstats.clone(), pstats.clone()
+    rs_k, rs_p = root_stats.clone(), root_stats.clone()
+    rollout.backprop_path(p_k, value, rs_k, k, sim_reward, use_value)
+    rollout.backprop_path_plain(p_p, value, rs_p, p.leaf, p.rows, p.acts, p.depth, sim_reward, use_value)
+    torch.cuda.synchronize()
+    assert torch.equal(p_k, p_p) and torch.equal(rs_k, rs_p)
+    assert torch.equal(rs_k[:, 0], root_stats[:, 0] + 1)
+    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 1, "backprop_path": 1}
+
+    # nothing to do anywhere: every leaf valued and expanded
+    calm = (value.nan_to_num(0.0), terminal, torch.ones_like(expanded), root, root_stats)
+    k = rollout.descend_path(pstats, *calm, **kw)
+    p = rollout.descend_path_plain(pstats, *calm, **kw)
+    assert not bool(k.need.any()) and not bool(k.work) and not bool(p.work)
+
+
 @pytest.mark.parametrize(
     "name", ["default", "fast_forest2", "leaf_batch4_forest2", "simulate"]
 )
@@ -368,4 +508,8 @@ def test_engine_session_on_the_card(dev, name):
     assert [r[0] for r in replies] == ["="] * 7 + ["?", "=", "="]
     assert replies[0] == "= 2\n\n" and replies[7] == "? illegal move\n\n"
     assert not bool(eng.state.invalid[0]) and eng._turn() == 2
-    assert all((n > 0) == fast for n in rollout.launches.values())
+    n = rollout.launches
+    assert (n["descend_backprop"] > 0) == (n["write_rows"] > 0) == fast
+    # every other configuration descends through K3; leaf-parallel search backs up on its own
+    assert (n["descend_path"] > 0) == (not fast)
+    assert (n["backprop_path"] > 0) == (name in ("default", "simulate"))

@@ -47,7 +47,7 @@ def test_search_matches_jax_kernel_path():
     np.testing.assert_array_equal(ta.numpy(), ja)
     assert int(tt.n_nodes.max()) > 82  # the search expanded below the root
     # CPU tensors take the plain versions: no kernel launches
-    assert trollout.launches == {"descend_backprop": 0, "write_rows": 0}
+    assert trollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}
 
 
 @pytest.mark.parametrize(
@@ -174,7 +174,7 @@ def test_unported_paths_raise(cfg):
     trees = tmcts.search_step(trees, fake_evaluator(), None, tcfg, gen=gen)
     trees = tmcts.run_search(trees, fake_evaluator(), None, tcfg, 4, gen=gen)
     assert trees.root_stats[:, 0].tolist() == [5.0, 5.0]
-    assert trollout.launches == {"descend_backprop": 0, "write_rows": 0}
+    assert trollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}
     if not tcfg.no_sim:
         assert bool((trees.root_stats[:, 1] != 0).all())  # five playouts of +-1 each
         with pytest.raises(ValueError, match="Generator"):
@@ -183,3 +183,69 @@ def test_unported_paths_raise(cfg):
     trees = tmcts.init_trees(ts, fake_evaluator(), None, plain, gen=torch.Generator().manual_seed(0))
     trees = tmcts.search_step(trees, fake_evaluator(), None, plain)
     assert trees.root_stats[:, 0].tolist() == [1.0, 1.0]
+
+
+def _grown_trees(expand_thresh: int, eval_every: int, rollouts: int = 30):
+    """Non-kernel trees grown from random midgame roots; at ``eval_every > 1``
+    some leaves are still unvalued."""
+    cfg = TConfig(**dict(PLAIN, eval_every=eval_every, expand_thresh=expand_thresh))
+    ts = to_port(random_positions(26, 6, 14, pass_prob=0.05))
+    ev = fake_evaluator()
+    return tmcts.run_search(tmcts.init_trees(ts, ev, None, cfg), ev, None, cfg, rollouts), cfg
+
+
+@pytest.mark.parametrize("use_value", [True, False])
+@pytest.mark.parametrize("w", [1.0, 0.5])
+def test_path_wrappers_take_the_plain_versions_on_the_cpu(w, use_value):
+    """``descend_path`` and ``backprop_path`` on CPU tensors are their plain
+    versions, and launch nothing."""
+    import torch
+
+    trees, cfg = _grown_trees(1, 2, 40)
+    trees.pstats[:, :, 1] = torch.randn(trees.pstats[:, :, 1].shape, generator=torch.Generator().manual_seed(0))
+    args = (trees.pstats, trees.value, trees.terminal, trees.expanded, trees.root, trees.root_stats)
+    kw = dict(c=cfg.exploration_weight, w=w, levels=cfg.max_depth - 1, expand_thresh=cfg.expand_thresh)
+    trollout.reset_launches()
+    got, want = trollout.descend_path(*args, **kw), trollout.descend_path_plain(*args, **kw)
+    for f in trollout.PathDescent._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(got.depth.max()) >= (2 if w == 1.0 else 1)  # random Wq steers toward fresh edges
+    reward = torch.tensor([1.0, -1.0] * 3)
+    p_got, p_want = trees.pstats.clone(), trees.pstats.clone()
+    rs_got, rs_want = trees.root_stats.clone(), trees.root_stats.clone()
+    trollout.backprop_path(p_got, trees.value, rs_got, got, reward, use_value)
+    trollout.backprop_path_plain(p_want, trees.value, rs_want, *want[:3], want.depth, reward, use_value)
+    assert torch.equal(p_got, p_want) and torch.equal(rs_got, rs_want)
+    assert not torch.equal(p_got, trees.pstats)
+    assert trollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}
+
+
+@pytest.mark.parametrize("expand_thresh,eval_every", [(0, 1), (3, 2), (10, 2), (100, 1)])
+def test_descent_need_and_work_are_the_step_expression(expand_thresh, eval_every):
+    """``_descend_batch``'s ``need`` and work flag on a grown tree equal the
+    expression ``_search_step_plain`` computed from the descent before
+    they moved into it: the leaf's visits (the root's own at depth 0) above
+    ``expand_thresh``, not terminal, not expanded; the flag ``need`` or an
+    unvalued leaf in any tree."""
+    import torch
+
+    from bokego_tpu_torch.search.tree import take_rows
+
+    trees, cfg = _grown_trees(expand_thresh, eval_every)
+    flags = set()
+    for i in range(12):
+        desc = tmcts._descend_batch(trees, cfg, 1.0)
+        leaf_visits = torch.where(desc.depth > 0, desc.leaf_n, trees.root_stats[:, 0])
+        need = (
+            (leaf_visits > cfg.expand_thresh)
+            & ~take_rows(trees.terminal, desc.leaf)
+            & ~take_rows(trees.expanded, desc.leaf)
+        )
+        assert torch.equal(desc.need, need)
+        assert bool(desc.work) == bool(need.any() | take_rows(trees.value, desc.leaf).isnan().any())
+        flags.add(bool(desc.work))
+        trees = tmcts.search_step(trees, fake_evaluator(), None, cfg, i)
+    if expand_thresh == 100:
+        assert flags == {False}  # valued leaves below the threshold: nothing to do
+    elif expand_thresh == 0:
+        assert flags == {True}

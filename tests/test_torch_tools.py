@@ -125,7 +125,7 @@ def test_move_counts_match_the_jax_tool_model(batch, rollouts, eval_every):
     assert counts.forwards == [batch] * len(counts.forwards)
     assert counts.k1_calls == len(mcts.rollout_groups(rollouts, eval_every))
     assert counts.k1_rollouts == rollouts
-    assert counts.launches == {"descend_backprop": 0, "write_rows": 0} and counts.kernel_rollouts == 0
+    assert counts.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0} and counts.kernel_rollouts == 0
     # the replay rollout by rollout gives the trees of the grouped search, and counts K1's bytes
     n_bytes, n_ops, replayed = mfu_report.k1_move_work(states, mcts.net_evaluator(), params, cfg)
     grouped = mcts.run_search(mcts.init_trees(states, mcts.net_evaluator(), params, cfg), mcts.net_evaluator(),

@@ -205,6 +205,15 @@ def test_traced_genmove_equals_untraced(monkeypatch):
     assert all(s[4] == genmove[4] for s in recorder.spans if s[1] >= genmove[1])
 
 
+def test_path_kernel_counter_is_zero_on_the_cpu():
+    """On CPU tensors the descents take K3's plain version: a ``genmove``
+    counts its rollouts and descents, and no ``search.path_kernel``."""
+    _, recorder = _traced(_engine_genmove)
+    assert recorder.counters["search.rollouts"] == 16 == recorder.phases["search.descend"].count
+    assert recorder.counters["search.path_kernel"] == 0
+    assert recorder.phases["sync.descend_level"].count >= 16
+
+
 def _innermost_open(rec) -> str | None:
     open_spans = [s for s in rec.spans if s[2] == 0]
     return open_spans[-1][0] if open_spans else None
