@@ -1,14 +1,18 @@
 """Batched inference over the nets (counterpart of
 ``bokego_tpu/models/inference.py``): every function takes ``(B, 9, 9, 27)``
 NHWC feature stacks and runs without autograd.  ``dtype=torch.bfloat16``
-takes the nets' bf16 route (``models/nets.py``) and returns float32."""
+takes the nets' bf16 route (``models/nets.py``) and returns float32.
+:func:`policy_value` runs the joint net of ``models/resnet.py``, which has
+no counterpart in the JAX package."""
 
 from __future__ import annotations
 
 import torch
 
+from bokego_tpu_torch.coords import NN
 from bokego_tpu_torch.features import features_batch
 from bokego_tpu_torch.models.nets import PolicyNet, PolicyNetV2, ValueNet
+from bokego_tpu_torch.models.resnet import ResNetPV
 from bokego_tpu_torch.utils import metrics
 
 
@@ -42,6 +46,18 @@ def value_fn(net: ValueNet, fts: torch.Tensor, dtype: torch.dtype | None = None)
     """(B, 9, 9, 27) -> (B,) value in (-1, 1) for the side to move."""
     with metrics.span("nets.value"):
         return _forward(net, fts, dtype)[..., 0]
+
+
+@torch.inference_mode()
+def policy_value(net: ResNetPV, fts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, 9, 9, 27) -> (probs (B, 81), values (B,)) of a joint
+    policy-value net in one forward, both float32.  ``probs`` is the softmax
+    over the 81 board logits, the 82-way softmax renormalised without pass:
+    the search gives pass no prior."""
+    with metrics.span("nets.pv"):
+        metrics.count("nets.pv_rows", fts.shape[0])
+        logits, values = net(fts)
+        return torch.softmax(logits[:, :NN], dim=-1), values
 
 
 def policy_value_states(policy: PolicyNet, value: ValueNet, states) -> tuple[torch.Tensor, torch.Tensor]:

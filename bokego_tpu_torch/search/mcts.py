@@ -116,6 +116,26 @@ def net_evaluator(has_value: bool = True, dtype: torch.dtype | None = None) -> E
     )
 
 
+def pv_evaluator() -> Evaluator:
+    """Evaluator over one joint policy-value net; ``params = {"pv":
+    ResNetPV}`` (``models/resnet.py``, on the search's device, in eval mode;
+    its ``inference()`` copy for serving).  Every callback runs the one
+    forward of ``inference.policy_value``."""
+
+    def evaluate_fts(params, fts):
+        return inference.policy_value(params["pv"], fts)
+
+    def evaluate(params, states):
+        return evaluate_fts(params, features_batch(states))
+
+    def policy_probs(params, states):
+        return evaluate(params, states)[0]
+
+    return Evaluator(
+        evaluate=evaluate, has_value=True, evaluate_fts=evaluate_fts, policy_probs=policy_probs
+    )
+
+
 def _mix_weight(cfg: SearchConfig, has_value: bool) -> float:
     """λ: 1.0 in no_sim mode, 0.0 without a value net, else the config's."""
     if cfg.no_sim:
