@@ -20,10 +20,13 @@ of history, since the port's rules keep no history.
 Inputs are NHWC ``(B, 9, 9, 27)`` like the other nets; outputs are
 ``(logits (B, 82), value (B,))``, the value for the side to move.  The
 float32 module in eval mode (running BatchNorm statistics) is the source of
-truth; :meth:`ResNetPV.inference` gives the serving copy: each BatchNorm
-folded into the convolution before it, the weights cast once (bf16 by
-default), channels-last activations, the dense layers in that dtype, and
-tanh (and the caller's softmax) in float32.
+truth; :meth:`ResNetPV.inference` gives the serving copy
+(:class:`FoldedResNetPV`): each BatchNorm folded into the convolution before
+it, the weights cast once (bf16 by default), channels-last activations, the
+dense layers in that dtype, and tanh (and the caller's softmax) in float32.
+Its trunk runs each 3x3 convolution through cuDNN without the bias and then
+one in-place pass of ``ops/epilogue.bias_add_relu``: the bias, the block's
+input after the second convolution of a block, and the ReLU, rounded once.
 
 :func:`init_resnet` draws a seeded net whose policy is neither one-hot nor
 flat and whose value is neither saturated nor dead at these depths:
@@ -38,6 +41,7 @@ from __future__ import annotations
 import copy
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from bokego_tpu_torch.coords import NN
@@ -45,6 +49,7 @@ from bokego_tpu_torch.device import resolve_device
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.features import features_batch
 from bokego_tpu_torch.models.nets import lecun_normal_
+from bokego_tpu_torch.ops import epilogue
 from bokego_tpu_torch.utils import metrics
 
 EPS = 1e-5  # BatchNorm epsilon; the paper gives none
@@ -135,7 +140,7 @@ class ResNetPV(nn.Module):
         yield self, "value_conv", "value_bn"
 
     @torch.no_grad()
-    def inference(self, dtype: torch.dtype = torch.bfloat16) -> "ResNetPV":
+    def inference(self, dtype: torch.dtype = torch.bfloat16) -> "FoldedResNetPV":
         """A serving copy in eval mode: every BatchNorm folded into the
         convolution before it (its scale into the weights, its shift into a
         bias), the parameters cast to ``dtype`` once, the convolution
@@ -147,7 +152,30 @@ class ResNetPV(nn.Module):
             conv.weight.mul_(scale.view(-1, 1, 1, 1))
             conv.bias = nn.Parameter(bn.bias - bn.running_mean * scale)
             setattr(owner, bn_name, nn.Identity())
+        net.__class__ = FoldedResNetPV
         return net.to(dtype=dtype, memory_format=torch.channels_last).requires_grad_(False)
+
+
+class FoldedResNetPV(ResNetPV):
+    """The serving copy :meth:`ResNetPV.inference` returns: every BatchNorm
+    an ``Identity``, every convolution with the folded bias.  Its trunk runs
+    each convolution through cuDNN without the bias, then one in-place
+    epilogue pass (``ops/epilogue.bias_add_relu``): bias and ReLU after the
+    stem and each block's first convolution, bias, the block's input and
+    ReLU after its second.  The heads are :class:`ResNetPV`'s."""
+
+    def tower(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2).to(self.stem.weight.dtype)
+        h = _trunk_layer(self.stem, x)
+        for block in self.blocks:
+            h = _trunk_layer(block.conv2, _trunk_layer(block.conv1, h), h)
+        return h
+
+
+def _trunk_layer(conv: nn.Conv2d, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
+    """cuDNN's convolution without the bias, then the epilogue in place."""
+    y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding)
+    return epilogue.bias_add_relu(y, conv.bias, residual)
 
 
 def random_positions(n_games: int, plies, seed: int, device=None):

@@ -168,11 +168,21 @@ Phases (any failure exits non-zero; nothing is caught):
     paths, no K1/K2 launch, one K3 and one K4 launch a rollout;
 36. ``python -m bokego_tpu_torch.parallel.scaling 2 SCALING_K --device
     cuda:0 --backend gloo`` (the bench's nets, its weight files named): exit
-    0, actions and scores IDENTICAL.
+    0, actions and scores IDENTICAL;
+37. the residual tower's trunk epilogue (``ops/epilogue.py``) at B=1024,
+    C=256 in bf16, both forms (bias and ReLU; bias, residual and ReLU): the
+    kernel against its plain version bit for bit, then timed beside its byte
+    bound, the plain version and PyTorch's unfused chain (``add_``, ``+``,
+    ``relu``: the route it replaced, never called by the port), over
+    EPI_BUFFERS activations so that the data does not stay in L2; its device
+    time a launch in a profiled forward of the published-size tower, and
+    that forward against the unfused route of the same folded weights (79
+    launches a forward; runnable alone as ``chip_smoke.check_epilogue(dev)``).
 
 The last seven lines of standard output are the training phases' figures,
 the data-parallel phases' figures, the matches' figures, the tools'
-figures, the bench phases' figures, the kernels' JSON record (K1 and K2
+figures, the bench phases' figures (with phase 37's forward times), the
+kernels' JSON record (K1 and K2
 once at the self-play path's shapes, once at the serving path's, once at
 the ``selfplay_sharded`` path's per-rank shapes with rank 0's launches of
 phase 23, once at the fidelity match's shapes with its FAST side's
@@ -180,7 +190,8 @@ launches, the serving match's launches beside the serving path's shapes,
 which its ``--fast --forest 8`` side shares, phase 30's move's launches
 beside the records at its shapes, the bench path's launches (phase 33's
 first fp32 run, the warm-up move included) beside phases 2-3's records at
-its shapes, and phase 34's launches beside its records at B=BIG_BATCH) and
+its shapes, phase 34's launches beside its records at B=BIG_BATCH, and
+phase 37's two forms of the epilogue with their launches a forward) and
 the device line ``{"ok": true, "device": {...}}``; the line before them is
 ``nvidia-smi``'s name and power limit.
 """
@@ -235,6 +246,8 @@ BIG_BATCH, BIG_MOVES = 4096, 8  # phase 34: the batch variant (BASELINE.json con
 BF16_TOL = 1e-4  # phase 33: the bf16 evaluator on the card against the CPU (ATOL_BF16 of tests/test_torch_bench.py)
 LATENCY_SECONDS = 1.0  # phase 35: serving_latency's --time, one trial a path
 SCALING_K = 4  # phase 36: games per rank of parallel.scaling over 2 gloo ranks on cuda:0
+EPI_BATCH, EPI_CHANNELS = 1024, 256  # phase 37: the tower's trunk activation at the self-play batch
+EPI_BUFFERS = 4  # phase 37: activations the timed launches cycle through (170 MB and more: past the 50 MB L2)
 BENCH_NETS = ", ".join(os.path.relpath(p, os.path.dirname(os.path.abspath(__file__)))
                        for p in (BENCH_POLICY_WEIGHTS, BENCH_VALUE_WEIGHTS))  # the bench's weight files
 
@@ -1074,6 +1087,106 @@ def check_path_kernels(dev, params) -> dict:
         check(calls > 0, f"the profiled genmove launched no {name}")
         records[(name, "main_path")] = dict(launches=calls, device_us_per_launch=us / calls)
         log(f"{name} on the main path (-r 100 genmove): {calls} launches, {us / calls:.3f} us a launch on the device")
+    return records
+
+
+def check_epilogue(dev) -> dict:
+    """Phase 37: the trunk epilogue at B=EPI_BATCH, C=EPI_CHANNELS, bf16;
+    returns its records by form (``bias_relu``, ``bias_residual_relu``)."""
+    import itertools
+
+    from bokego_tpu_torch.models import resnet
+    from bokego_tpu_torch.ops import epilogue
+    from bokego_tpu_torch.utils.metrics import device_trace
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def activation():
+        x = torch.randn((EPI_BATCH, 9, 9, EPI_CHANNELS), device=dev, generator=gen)
+        return x.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels-last (B, C, 9, 9)
+
+    bias = (0.1 * torch.randn(EPI_CHANNELS, device=dev, generator=gen)).to(torch.bfloat16)
+    ys = [activation() for _ in range(EPI_BUFFERS)]
+    rs = [activation() for _ in range(EPI_BUFFERS)]
+    b4 = bias.view(1, -1, 1, 1)
+    records = {}
+    for form, residual in (("bias_relu", False), ("bias_residual_relu", True)):
+        r0 = rs[0] if residual else None
+        want = epilogue.bias_add_relu_plain(ys[0].clone(), bias, r0)
+        got = epilogue.bias_add_relu(ys[0].clone(), bias, r0)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"epilogue {form}: kernel differs from its plain version")
+
+        def cycled(fn):
+            slots = itertools.cycle(range(EPI_BUFFERS))
+
+            def run():
+                k = next(slots)
+                return fn(ys[k], rs[k] if residual else None)
+            return run
+
+        iters = 10 * EPI_BUFFERS
+        ms, eager = time_ms(cycled(lambda y, r: epilogue.bias_add_relu(y, bias, r)), iters)
+        plain, plain_eager = time_ms(cycled(lambda y, r: epilogue.bias_add_relu_plain(y, bias, r)), EPI_BUFFERS)
+        if residual:  # the unfused route: the convolution's bias add_, then x + t, then relu
+            lib, lib_eager = time_ms(cycled(lambda y, r: torch.relu(r + y.add_(b4))), iters)
+        else:
+            lib, lib_eager = time_ms(cycled(lambda y, r: torch.relu(y.add_(b4))), iters)
+        n_bytes = (3 if residual else 2) * ys[0].numel() * 2 + bias.numel() * 2
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        records[form] = dict(
+            ms=ms, eager_ms=eager, plain_ms=plain, plain_eager_ms=plain_eager, library_ms=lib,
+            library_eager_ms=lib_eager, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms, bytes=n_bytes,
+        )
+        log(
+            f"epilogue {form}: B={EPI_BATCH} C={EPI_CHANNELS} bf16, equal to the plain version bit for bit; "
+            f"kernel_ms={ms:.5f} ({100 * b_ms / ms:.1f} % of its bound) plain_ms={plain:.5f} library_ms={lib:.5f} "
+            f"bound_ms={b_ms:.5f} ({b_by}, {n_bytes} B); eager launches: kernel_ms={eager:.5f} "
+            f"plain_ms={plain_eager:.5f} library_ms={lib_eager:.5f}"
+        )
+    del ys, rs
+
+    # The published-size tower (seeded, uncalibrated weights: the times do not
+    # depend on them): its device time a launch, and a forward against the
+    # unfused route of the same folded weights.
+    with dev:
+        net = resnet.ResNetPV().eval().inference()
+    fts = torch.randint(0, 2, (EPI_BATCH, 9, 9, 27), device=dev, generator=gen).float()
+    forwards = {
+        "fused": lambda: net(fts),
+        "unfused": lambda: resnet.ResNetPV.heads(net, resnet.ResNetPV.tower(net, fts)),
+    }
+    times = {k: [] for k in forwards}
+    with torch.inference_mode():
+        for name in ("fused", "unfused", "unfused", "fused"):  # in turns, each warmed first
+            forwards[name]()
+            times[name].append(_events_ms(lambda: [forwards[name]() for _ in range(5)], 5))
+        epilogue.reset_launches()
+        with tempfile.TemporaryDirectory() as tmp:
+            with device_trace(tmp):
+                for _ in range(3):
+                    net(fts)
+                torch.cuda.synchronize()
+            with open(os.path.join(tmp, "trace.json")) as f:
+                events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    launches = epilogue.launches["bias_add_relu"]
+    check(launches == 3 * 79, f"epilogue launches in 3 forwards: {launches}, expected 237")
+    # The last two forwards' launches: a profiler started late in a process
+    # can drop the first kernels of its window.
+    epi = sorted((e for e in events if "bias_add_relu" in e["name"]), key=lambda e: float(e["ts"]))[-2 * 79:]
+    check(len(epi) == 2 * 79, f"{len(epi)} epilogue kernels traced in 3 forwards, expected at least 158")
+    for form, flag in (("bias_relu", ", false>"), ("bias_residual_relu", ", true>")):
+        durs = [float(e["dur"]) for e in epi if flag in e["name"]]
+        check(len(durs) == 2 * (40 if flag == ", false>" else 39), f"epilogue {form}: {len(durs)} of the last 2 forwards")
+        records[form].update(main_path_us=sum(durs) / len(durs), launches_per_forward=len(durs) // 2)
+    fused_ms, unfused_ms = statistics.mean(times["fused"]), statistics.mean(times["unfused"])
+    figures = dict(fused_forward_ms=times["fused"], unfused_forward_ms=times["unfused"])
+    log(
+        f"epilogue in the tower at B={EPI_BATCH}: forward {fused_ms:.3f} ms, unfused route {unfused_ms:.3f} ms "
+        f"(each the mean of 2 turns of 5); device us a launch {records['bias_relu']['main_path_us']:.2f} (bias, ReLU) and "
+        f"{records['bias_residual_relu']['main_path_us']:.2f} (bias, residual, ReLU); {launches // 3} launches a forward"
+    )
+    records["figures"] = figures
     return records
 
 
@@ -2160,6 +2273,8 @@ def main() -> int:
     fid_counts, sm_counts, fid_records, match_figures = match_phases(dev)
     mfu_counts, mfu_records, tool_figures = tool_phases(dev, params)
     bench_counts, big_counts, big_records, bench_figures = bench_phases(dev)
+    epi_records = check_epilogue(dev)
+    epi_figures = epi_records.pop("figures")
 
     log(f"total: {time.monotonic() - t_start:.1f} s")
 
@@ -2180,12 +2295,18 @@ def main() -> int:
             ("bench", bench_counts, records), ("bench_b4096", big_counts, big_records),
         )
         for name in ("descend_backprop", "write_rows")
+    ] + [
+        dict(
+            name=f"bias_add_relu.{form}", route="cuda", source="bokego_tpu_torch/ops/csrc/epilogue.cu",
+            replaces=None, path="tower_forward", **rec,
+        )
+        for form, rec in epi_records.items()
     ]
     log(json.dumps({"training": train_figures}))
     log(json.dumps({"data_parallel": dp_figures}))
     log(json.dumps({"matches": match_figures}))
     log(json.dumps({"tools": tool_figures}))
-    log(json.dumps({"bench": bench_figures}))
+    log(json.dumps({"bench": {**bench_figures, "epilogue": epi_figures}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -3,8 +3,9 @@ and K2 at the self-play and at the serving shapes, K3 and K4 on synthetic
 trees up to the search's depth bound), GPU self-play, the non-kernel
 search, leaf-parallel search and simulation mode (with the one-hot playout
 policy, whose draws cannot matter) against their CPU runs, a short engine
-session per configuration on the card, the profiler hooks, and the
-program's ``sync.<site>`` spans against CUDA's sync debug mode.
+session per configuration on the card, the profiler hooks, the program's
+``sync.<site>`` spans against CUDA's sync debug mode, and the residual
+tower's trunk epilogue against its plain version and in the tower.
 Marked ``cuda``; they skip without a GPU.  This file imports no JAX, so it
 also runs where JAX is absent:
 
@@ -24,7 +25,7 @@ from bokego_tpu_torch.config import BENCH_CONFIG, EngineConfig, SearchConfig
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.gtp.engine import GTPEngine
 from bokego_tpu_torch.models import nets
-from bokego_tpu_torch.ops import rollout
+from bokego_tpu_torch.ops import epilogue, rollout
 from bokego_tpu_torch.parallel.selfplay import selfplay
 from bokego_tpu_torch.search import leafpar, mcts, tree
 from bokego_tpu_torch.search.tree import C_CHILD, C_N, C_PRIOR, C_WQ, C_WV
@@ -513,3 +514,87 @@ def test_engine_session_on_the_card(dev, name):
     # every other configuration descends through K3; leaf-parallel search backs up on its own
     assert (n["descend_path"] > 0) == (not fast)
     assert (n["backprop_path"] > 0) == (name in ("default", "simulate"))
+
+
+# ---------------------------------------------------------------------------
+# The residual tower's trunk epilogue (ops/epilogue.py)
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["bias_relu", "bias_residual_relu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("batch,channels", [(1024, 256), (3, 16)])
+def test_epilogue_kernel_matches_plain(dev, batch, channels, dtype, residual):
+    gen = torch.Generator(device=dev).manual_seed(batch + channels)
+
+    def activation():
+        x = 2.0 * torch.randn((batch, 9, 9, channels), device=dev, generator=gen)
+        return x.permute(0, 3, 1, 2).to(dtype)  # channels-last (B, C, 9, 9)
+
+    y, bias = activation(), torch.randn(channels, device=dev, generator=gen).to(dtype)
+    r = activation() if residual else None
+    want = epilogue.bias_add_relu_plain(y.clone(), bias, r)
+    before = epilogue.launches["bias_add_relu"]
+    got = epilogue.bias_add_relu(y, bias, r)
+    torch.cuda.synchronize()
+    assert got is y and epilogue.launches["bias_add_relu"] == before + 1
+    assert torch.equal(y, want)
+    assert bool((y == 0).any()) and bool((y > 0).any())  # both sides of the ReLU
+
+
+def test_tower_forward_is_79_epilogue_launches_and_matches_the_unfused_one(dev, tmp_path):
+    """One ``policy_value`` forward of the published-size tower at B=1024:
+    79 epilogue launches (the stem and 78 trunk convolutions) and, in a
+    traced forward, no elementwise kernel between its first and its last
+    epilogue (the trace is read from its last forward: a profiler started
+    late in a process can drop the first kernels of its window).  Its outputs, and
+    those of the unfused route (``ResNetPV``'s own forward of the same
+    folded weights), within the tower's bf16 limits (its cell's check) of
+    the float32 reference, and within them of each other."""
+    import json
+    import os
+    from pathlib import Path
+
+    from bokego_tpu_torch.features import features_batch
+    from bokego_tpu_torch.models import inference, resnet
+    from tests import reference_agz as ref
+
+    module = resnet.init_resnet(0, dev)
+    net = module.inference()
+    fts = features_batch(resnet.random_positions(256, (0, 20, 40, 60), 21, dev))
+    assert fts.shape[0] == 1024
+    epilogue.reset_launches()
+    rec = metrics.enable()
+    try:
+        probs, _ = inference.policy_value(net, fts)
+    finally:
+        metrics.disable()
+    assert rec.counters["nets.epilogue"] == epilogue.launches["bias_add_relu"] == 79
+    assert bool(torch.isfinite(probs).all())
+    with torch.inference_mode():
+        fused = net(fts)
+        unfused = resnet.ResNetPV.heads(net, resnet.ResNetPV.tower(net, fts))
+        with metrics.device_trace(str(tmp_path)):
+            for _ in range(3):
+                net.tower(fts)
+            torch.cuda.synchronize()
+    fused, unfused = (tuple(t.float().cpu() for t in x) for x in (fused, unfused))
+    want = ref.forward(module.state_dict(), fts.permute(0, 3, 1, 2), device=dev)
+    limits = json.loads((Path(__file__).resolve().parents[1] / "benchmark/configs/selfplay-agz40-b1024.json").read_text())["check"]
+
+    def gaps(a, b):
+        logp = [torch.log_softmax(x[:, :81].float(), -1) for x in (a[0], b[0])]
+        return float((logp[0] - logp[1]).abs().max()), float((a[1] - b[1]).abs().max())
+
+    for what, (logp_gap, value_gap) in (
+        ("fused vs float32", gaps(fused, want)), ("unfused vs float32", gaps(unfused, want)),
+        ("fused vs unfused", gaps(fused, unfused)),
+    ):
+        assert logp_gap <= limits["logp_gap"] and value_gap <= limits["value_gap"], (what, logp_gap, value_gap)
+    with open(os.path.join(tmp_path, "trace.json")) as f:
+        events = sorted((e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"), key=lambda e: float(e["ts"]))
+    kernels = [e["name"] for e in events]
+    epi = [i for i, k in enumerate(kernels) if "bias_add_relu" in k]
+    assert len(epi) >= 79, kernels
+    trunk = kernels[epi[-79]:epi[-1] + 1]  # the last forward, stem epilogue to last epilogue
+    assert sum("bias_add_relu" in k for k in trunk) == 79
+    assert not [k for k in trunk if "elementwise" in k], trunk
