@@ -71,8 +71,8 @@ def play(device, which: str) -> dict:
             states, done = bench.one_move(states, done, cev, params, s.cfg, s.rollouts)
         synchronize(device)
         per_move.append(dict(
-            forwards=len(counts.forwards), ms=1e3 * (time.monotonic() - t0), k1=counts.launches["descend_backprop"],
-            k2=counts.launches["write_rows"], done=int(done.sum()),
+            forwards=len(counts.forwards), ms=1e3 * (time.monotonic() - t0),
+            k1=int(counts.counters["ops.descend_backprop"]), k2=int(counts.counters["ops.write_rows"]), done=int(done.sum()),
         ))
     return dict(nets=which, source=source, batch=s.batch, rollouts=s.rollouts, moves=per_move)
 

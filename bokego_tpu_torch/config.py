@@ -2,8 +2,10 @@
 ``SearchConfig`` and ``EngineConfig``).
 
 Same fields, defaults and validation.  In the port, ``use_kernel`` selects
-the CUDA rollout kernels (``ops/rollout.py``) and ``kernel_block`` is kept
-for parity of the field set only: the CUDA kernel blocks trees on its own.
+the fused rollout kernel K1 over the descent and backprop kernels K3/K4
+(``ops/rollout.py``; every expansion runs K2 either way) and
+``kernel_block`` is kept for parity of the field set only: the CUDA kernel
+blocks trees on its own.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ kernel_levels=6, expand_thresh=100, max_nodes=512) with the bench's nets
   into light and eval rollouts: what a launch per rollout costs;
 * from ``torch.profiler`` over one unsynchronised move through
   ``mcts.search``: device time by kernel name, the device-busy share of the
-  move's wall time, and the K1 launches and rollouts of that move.
+  move's wall time, and the move's launches of the port's own kernels.
 
 Then the serving path: the GTP engine with the shipped
 ``data/weights/policy_17.pt`` and ``value_r2.pt``, in its default
@@ -31,7 +31,7 @@ and as ``--simulate -r 8``, each after a warm-up and three generated moves:
   evaluations, the leaf-parallel steps' K descents with their virtual
   losses and their backprops, and simulation mode's playouts;
 * one more ``genmove`` under ``torch.profiler``: device time by kernel, the
-  device's busy and idle share, K1 and K2 launches.
+  device's busy and idle share, the port's own kernels' launches.
 
 Then the training path: one AlphaZero self-play move at the trainer's
 search (B=64, 64 rollouts, non-kernel) split into ``init_trees``, the
@@ -56,8 +56,8 @@ from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG as CFG, POLICY_WEI
 from bokego_tpu_torch.device import fp32_only
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.models import nets
-from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.search import leafpar, mcts
+from bokego_tpu_torch.utils import metrics
 
 MOVES = 3  # synchronised grouped moves played before the stepped and the profiled one
 
@@ -138,14 +138,17 @@ def device_profile(move) -> tuple[list[tuple[str, float, int]], float, float]:
 
 
 def print_profile(what: str, move) -> None:
-    rollout.reset_launches()
-    rows, dev_ms, wall = device_profile(move)
+    """Device time by kernel of ``move`` (the top 15, then the port's own
+    kernels: ``ops.<name>`` counts the launches of ``<name>_kernel``) and
+    the device's busy share."""
+    with metrics.recording(spans=False) as rec:
+        rows, dev_ms, wall = device_profile(move)
+    launched = {k[len("ops."):]: int(n) for k, n in rec.counters.items() if k.startswith("ops.")}
     print(
         f"profiled {what}: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms ({100 * dev_ms / wall:.1f}%), "
-        f"idle {100 - 100 * dev_ms / wall:.1f}%; launches {dict(rollout.launches)}, "
-        f"K1 rollouts {rollout.kernel_rollouts}"
+        f"idle {100 - 100 * dev_ms / wall:.1f}%; launches {launched}"
     )
-    ours = [r for r in rows if "descend_backprop_kernel" in r[0] or "write_rows_kernel" in r[0]]
+    ours = [r for r in rows if any(f"{k}_kernel" in r[0] for k in launched)]
     for name, ms, calls in rows[:15] + ours:
         print(f"  {ms:9.3f} ms  {calls:6d} calls  {1e3 * ms / calls:9.2f} us/call  {name[:90]}")
 

@@ -31,8 +31,9 @@ Counts come from shapes and from the run, never from a device:
 * K1's needed bytes (:func:`k1_work`), from the move replayed rollout by
   rollout (one launch of R rollouts equals R launches of one, bit for bit);
 * the forwards and K1 launches of a move, counted around ``mcts.run_search``
-  (a wrapped evaluator, ``ops.rollout``'s launch counters) and printed
-  beside the JAX tool's model, ``ceil(rollouts / E) + 1`` forwards.  The
+  (a wrapped evaluator, and the program's ``ops.*`` launch counters,
+  recorded without spans, so that a timed move carries no span's cost) and
+  printed beside the JAX tool's model, ``ceil(rollouts / E) + 1`` forwards.  The
   model counts a forward on every eval step, but an eval step on which no
   tree has work skips it (here as in the JAX package, whose ``lax.cond``
   does the same), so a move runs fewer; the totals count those it ran.
@@ -66,6 +67,7 @@ from bokego_tpu_torch.features import features_batch
 from bokego_tpu_torch.models import nets
 from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.search import mcts
+from bokego_tpu_torch.utils import metrics
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -194,28 +196,21 @@ def k1_work(results, parent, levels: int, planes: int) -> tuple[int, int]:
 
 @dataclasses.dataclass
 class MoveCounts:
-    """What one move ran: the batch of each net forward, the K1 wrapper's
-    calls and their rollouts, and ``ops.rollout``'s kernel launches."""
+    """What one move ran: the batch of each net forward, and the program's
+    counters (``utils/metrics``), among them each kernel's launches as
+    ``ops.<wrapper>`` and K1's rollouts as ``ops.descend_backprop.rollouts``
+    (none on the CPU, where the plain versions run)."""
 
     forwards: list[int] = dataclasses.field(default_factory=list)
-    k1_calls: int = 0
-    k1_rollouts: int = 0
-    launches: dict[str, int] = dataclasses.field(default_factory=dict)
-    kernel_rollouts: int = 0
+    counters: dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 @contextlib.contextmanager
 def counting(ev: mcts.Evaluator):
-    """While open, the search's K1 calls (``mcts.launch_rollouts``) and the
-    forwards of the yielded evaluator are counted into the yielded
-    ``MoveCounts``; the kernel launch counters are read on exit."""
+    """While open, the forwards of the yielded evaluator are counted into
+    the yielded ``MoveCounts``, and the program's counts (not its spans)
+    into its ``counters``."""
     counts = MoveCounts()
-    plain = mcts.launch_rollouts
-
-    def launch(trees, ev_, cfg, rollouts):
-        counts.k1_calls += 1
-        counts.k1_rollouts += rollouts
-        return plain(trees, ev_, cfg, rollouts)
 
     def evaluate(params, states):
         counts.forwards.append(int(states.board.shape[0]))
@@ -225,13 +220,9 @@ def counting(ev: mcts.Evaluator):
         counts.forwards.append(int(fts.shape[0]))
         return ev.evaluate_fts(params, fts)
 
-    rollout.reset_launches()
-    mcts.launch_rollouts = launch
-    try:
+    with metrics.recording(spans=False) as rec:
+        counts.counters = rec.counters
         yield ev._replace(evaluate=evaluate, evaluate_fts=evaluate_fts if ev.evaluate_fts else None), counts
-    finally:
-        mcts.launch_rollouts = plain
-        counts.launches, counts.kernel_rollouts = dict(rollout.launches), rollout.kernel_rollouts
 
 
 def search_move(states, ev, params, cfg):
@@ -386,11 +377,18 @@ def report(dev, batch: int, rollouts: int, eval_every: int, peaks: Peaks = Peaks
                 states, dt = measure._sync_time(lambda: search_move(states, cev, params, cfg))
             move_ms.append(dt * 1e3)
             counted.append(counts)
-    else:
+    else:  # nothing launches on the CPU: the move's spans give K1's calls
         split_states = states
-        with counting(ev) as (cev, split_counts):
+        with metrics.recording() as traced, counting(ev) as (cev, split_counts):
             states = search_move(states, cev, params, cfg)
         counted.append(split_counts)
+
+    def k1_calls(c: MoveCounts) -> tuple[int, int]:
+        """K1's calls and their rollouts in a counted move."""
+        if on_card:
+            return int(c.counters["ops.descend_backprop"]), int(c.counters["ops.descend_backprop.rollouts"])
+        return traced.phases["search.k1"].count, int(traced.counters["search.rollouts"])
+
     k1_bytes, k1_ops, _ = k1_move_work(split_states, ev, params, cfg)
 
     f_net, b_net = net_flops(CHANNELS, batch), forward_bytes(CHANNELS, batch)
@@ -426,8 +424,7 @@ def report(dev, batch: int, rollouts: int, eval_every: int, peaks: Peaks = Peaks
     rows = [
         (f"net forward (policy+value, B={batch}; CUDA events)", f_net, b_net, t_net),
         ("init_trees (roots' forward, expansion with K2)", f_net, b_net, t_init),
-        (f"K1 {k1_what} ({split_counts.k1_calls} for {split_counts.k1_rollouts} rollouts)", (k1_ops, k1_ops),
-         k1_bytes, t_k1),
+        (f"K1 {k1_what} ({'%d for %d' % k1_calls(split_counts)} rollouts)", (k1_ops, k1_ops), k1_bytes, t_k1),
         (f"eval phases ({n_phases}; {n_eval} ran a forward)", eval_flops, eval_bytes, t_eval),
         (f"  of which {n_eval} net forwards ({n_eval} x the forward's time)", eval_flops, eval_bytes, t_fwds),
         ("  of which the rest (rules, features, expansion with K2)", None, None, t_rest),
@@ -442,8 +439,8 @@ def report(dev, batch: int, rollouts: int, eval_every: int, peaks: Peaks = Peaks
     for what, c in [("split move", split_counts)] * on_card + [("move", c) for c in counted]:
         print(
             f"{what}: forwards {len(c.forwards)} at batches {sorted(set(c.forwards))} (the JAX tool's model "
-            f"ceil({rollouts}/{eval_every})+1 = {model}); K1 calls {c.k1_calls} running {c.k1_rollouts} rollouts "
-            f"(rollout_groups: {len(groups)}); kernel launches {c.launches}"
+            f"ceil({rollouts}/{eval_every})+1 = {model}); K1 calls {'%d running %d' % k1_calls(c)} rollouts "
+            f"(rollout_groups: {len(groups)}); K2 launches {c.counters['ops.write_rows']:g}"
             + ("" if on_card else " (the plain versions on the CPU: no launch)")
         )
     if any(len(c.forwards) < model for c in [split_counts, *counted]):

@@ -9,9 +9,9 @@ CUDA kernel is in ``csrc/epilogue.cu`` and replaces no Pallas kernel (the
 JAX package left these ops to XLA's fusion); it is bound by bytes, and its
 source's header note says how it streams them.  The wrapper takes the plain
 PyTorch version only for CPU tensors (the tests); for a CUDA tensor it
-launches the kernel or raises.  ``launches`` counts kernel launches; the
-program counter ``nets.epilogue`` counts every pass, one a launch on the
-card.
+launches the kernel or raises.  The wrapper counts its kernel launches
+through ``utils/metrics.count`` as ``ops.bias_add_relu``, once a launch
+returned without error; a run of the plain version counts nothing.
 """
 
 from __future__ import annotations
@@ -22,15 +22,8 @@ import torch
 
 from bokego_tpu_torch.utils import metrics
 
-launches = {"bias_add_relu": 0}
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 def _lib():
@@ -83,7 +76,6 @@ def bias_add_relu(y: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor | 
     W)`` of one dtype, bfloat16 or float32, ``C % 8 == 0``, ``bias (C,)``.
     Returns ``y``."""
     _check(y, bias, residual)
-    metrics.count("nets.epilogue")
     if y.device.type == "cpu":
         return bias_add_relu_plain(y, bias, residual)
     if y.device.type != "cuda":
@@ -97,5 +89,5 @@ def bias_add_relu(y: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor | 
     )
     if err != 0:
         raise RuntimeError(f"bias_add_relu kernel launch failed: cudaError {err}")
-    launches["bias_add_relu"] += 1
+    metrics.count("ops.bias_add_relu")
     return y

@@ -1,12 +1,13 @@
 """The search's four rollout kernels: wrappers, plain versions, launch counts.
 
-K1 and K2 serve the kernel path.  ``descend_backprop`` (K1) replaces the
-Pallas kernel ``bokego_tpu/ops/rollout.py::descend_backprop`` (body
-``_kernel``) together with the scan of light search steps the JAX package
-runs around it: ``rollouts`` consecutive rollouts on every tree, each one
-fused PUCT descent for at most ``levels`` levels, the leaf's cached value
-(NaN -> 0, flagged unvalued), the in-place backprop of N (and Wv) over every
-traversed edge and the root's own stat update.  ``write_rows`` (K2) replaces
+K1 serves the kernel path and K2 every expansion, on either path.
+``descend_backprop`` (K1) replaces the Pallas kernel
+``bokego_tpu/ops/rollout.py::descend_backprop`` (body ``_kernel``) together
+with the scan of light search steps the JAX package runs around it:
+``rollouts`` consecutive rollouts on every tree, each one fused PUCT descent
+for at most ``levels`` levels, the leaf's cached value (NaN -> 0, flagged
+unvalued), the in-place backprop of N (and Wv) over every traversed edge and
+the root's own stat update.  ``write_rows`` (K2) replaces
 ``bokego_tpu/ops/rollout.py::write_rows`` (body ``_write_rows_kernel``):
 ``pstats[b, node[b]] = rows[b]`` where ``mask[b]``, in place.
 
@@ -31,8 +32,10 @@ cache), loads of only the lanes and planes the score needs, and a path kept
 in registers; K3/K4 are bound by one dependent row load a level and then
 the launch; the source's header note has the details.  Each wrapper takes
 its plain PyTorch version only for CPU tensors (the tests); for a CUDA
-tensor it launches the kernel or raises.  ``launches`` counts kernel
-launches and ``kernel_rollouts`` the rollouts those launches of K1 ran.
+tensor it launches the kernel or raises.  Each wrapper counts its kernel
+launches through ``utils/metrics.count`` as ``ops.<wrapper>`` (K1 also the
+rollouts they ran, as ``ops.descend_backprop.rollouts``), once a launch
+returned without error; a run of the plain version counts nothing.
 """
 
 from __future__ import annotations
@@ -56,17 +59,7 @@ from bokego_tpu_torch.search.tree import (
 )
 from bokego_tpu_torch.utils import metrics
 
-launches = {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}
-kernel_rollouts = 0  # rollouts run by descend_backprop's kernel launches
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def reset_launches() -> None:
-    global kernel_rollouts
-    for k in launches:
-        launches[k] = 0
-    kernel_rollouts = 0
 
 
 def _lib():
@@ -275,9 +268,8 @@ def descend_backprop(
         res.data_ptr(), batch, n_pool, levels, rollouts, c, w, 1.0 - w, int(use_value), stream,
     )
     _raise_on(err, "descend_backprop")
-    global kernel_rollouts
-    launches["descend_backprop"] += 1
-    kernel_rollouts += rollouts
+    metrics.count("ops.descend_backprop")
+    metrics.count("ops.descend_backprop.rollouts", rollouts)
     return res
 
 
@@ -313,7 +305,7 @@ def write_rows(
         batch, n_pool, stream,
     )
     _raise_on(err, "write_rows")
-    launches["write_rows"] += 1
+    metrics.count("ops.write_rows")
     return pstats
 
 
@@ -452,7 +444,7 @@ def descend_path(
         work.data_ptr(), batch, n_pool, levels, c, w, 1.0 - w, float(expand_thresh), stream,
     )
     _raise_on(err, "descend_path")
-    launches["descend_path"] += 1
+    metrics.count("ops.descend_path")
     return PathDescent(leaf=leaf, rows=rows, acts=acts, leaf_n=leaf_n, depth=depth, need=need, work=work)
 
 
@@ -522,4 +514,4 @@ def backprop_path(
         stream,
     )
     _raise_on(err, "backprop_path")
-    launches["backprop_path"] += 1
+    metrics.count("ops.backprop_path")

@@ -1,7 +1,10 @@
 """Batched PUCT Monte-Carlo tree search (counterpart of
 ``bokego_tpu/search/mcts.py``).
 
-Two rollout paths, chosen by ``SearchConfig.use_kernel``.
+Two rollout paths, chosen by ``SearchConfig.use_kernel``.  Both expand
+leaves the same way (:func:`_expand_batch`): ``tree.expand_core`` creates
+the children and ``ops/rollout.write_rows`` lands the parent rows, one
+launch of K2 on the card and its plain version on the CPU.
 
 The non-kernel path (the serving default): a PUCT walk from every root to a
 leaf (:func:`_descend_batch`, which also decides which leaves to expand and
@@ -18,9 +21,8 @@ torch versions, all trees in lockstep with a host read per tree level.
 On the kernel path rollouts run through the fused descend/backprop kernel
 (``ops/rollout.descend_backprop``), which also applies the root's own stat
 update; on eval steps the leaves are evaluated with one batched net forward
-and expanded, the parent rows landing through the ``write_rows`` kernel.
-The order is the JAX kernel path's delayed valuation: backprop with the
-leaf's current cached value first, then eval/expand
+and expanded.  The order is the JAX kernel path's delayed valuation:
+backprop with the leaf's current cached value first, then eval/expand
 (``SearchConfig.eval_every``).
 
 A step that is not an eval step is the kernel and nothing else (the JAX
@@ -31,22 +33,19 @@ an eval step and gives each group to one kernel launch: at ``eval_every=8``
 a launch runs eight rollouts per tree back to back on the device, with no
 host work between them.  ``search_step`` is a group of one.  The eval phase
 is decided on the host: only on eval steps is the any-work flag
-synchronised, and ``_expand_batch`` with its ``write_rows`` launch runs only
-when that flag is true; the JAX package calls them on every rollout with an
-all-false mask when there is no work, which writes nothing, so the results
-are the same.
+synchronised, and ``_expand_batch`` runs only when that flag is true; the
+JAX package calls them on every rollout with an all-false mask when there
+is no work, which writes nothing, so the results are the same.
 
 Simulation mode (``no_sim=False``) plays every leaf out to the end of the
 game with the policy on every step (:func:`_simulate`) and backs the
 Tromp-Taylor reward up the Wq plane beside the value net's Wv; PUCT mixes
 the two by ``value_net_weight``.  The rollout kernel is a ``no_sim`` kernel,
-so with ``use_kernel=True`` and ``no_sim=False`` the descent and the backprop
-take the non-kernel path, as in the JAX package (only the expansion's row
-write still goes through ``write_rows``; the CLI's ``--simulate`` sets
-``use_kernel=False``).  The
-playouts draw from the ``torch.Generator`` passed as ``gen``; without
-simulations ``gen`` is not read.  Leaf-parallel search (``leaf_batch > 1``)
-is :mod:`bokego_tpu_torch.search.leafpar`.
+so with ``use_kernel=True`` and ``no_sim=False`` the search takes the
+non-kernel path, as in the JAX package (the CLI's ``--simulate`` sets
+``use_kernel=False``).  The playouts draw from the ``torch.Generator``
+passed as ``gen``; without simulations ``gen`` is not read.  Leaf-parallel
+search (``leaf_batch > 1``) is :mod:`bokego_tpu_torch.search.leafpar`.
 
 Serving helpers: Dirichlet root noise (a draw and a pure mixing function),
 :func:`advance_root` / :func:`expand_roots` for subtree reuse between moves,
@@ -163,11 +162,9 @@ def choose_action(trees: Tree) -> torch.Tensor:
 
 
 def _expand_batch(trees: Tree, nodes, probs, need, cfg: SearchConfig, precomputed=None) -> Tree:
-    """Batched expansion; on the kernel path the parent rows land in place
-    through the ``write_rows`` kernel, else through an indexed torch write."""
+    """Batched expansion: the children through ``expand_core``, the parent
+    rows in place through ``rollout.write_rows``."""
     with metrics.span("search.expand"):
-        if not cfg.use_kernel:
-            return tr.expand(trees, nodes, probs, need, cfg.branch_num, cfg.max_turns, precomputed)
         trees, rows, did = expand_core(
             trees, nodes, probs, need, cfg.branch_num, cfg.max_turns, precomputed
         )
@@ -277,13 +274,10 @@ def _descend_batch(trees: Tree, cfg: SearchConfig, w: float) -> _Descent:
     the card, on the CPU its plain version, all trees in lockstep with one
     host read per level.  Exact score ties go to the lowest action."""
     with metrics.span("search.descend"):
-        desc = rollout.descend_path(
+        return rollout.descend_path(
             trees.pstats, trees.value, trees.terminal, trees.expanded, trees.root, trees.root_stats,
             c=cfg.exploration_weight, w=w, levels=cfg.max_depth - 1, expand_thresh=cfg.expand_thresh,
         )
-        if trees.pstats.is_cuda:
-            metrics.count("search.path_kernel")
-        return desc
 
 
 def _backprop_batch(

@@ -102,8 +102,9 @@ def expand_core(
     precomputed: tuple[GoState, torch.Tensor] | None = None,
 ) -> tuple[Tree, torch.Tensor, torch.Tensor]:
     """Create the children of ``node[b]`` for every legal point move, in
-    place, except the parent-row write: returns ``(tree, new_row, did)`` and
-    the caller lands ``new_row`` (the search uses the ``write_rows`` kernel).
+    place, except the parent-row write: returns ``(tree, new_row, did)``, and
+    the search lands ``new_row`` where ``did`` through
+    ``ops/rollout.write_rows``.
 
     PASS is never a tree edge; ``branch_num`` keeps only the top-k priors
     (lowest index on ties).  No-op for a tree where ``need`` is False, the
@@ -148,24 +149,6 @@ def expand_core(
     new_row[:, C_CHILD, :NN] = torch.where(write, slots.float(), NO_CHILD)
     new_row[:, C_TERM, :NN] = child_terminal.float()
     return tree, new_row, did
-
-
-def expand(
-    tree: Tree,
-    node: torch.Tensor,
-    probs: torch.Tensor,
-    need: torch.Tensor,
-    branch_num: int | None,
-    max_turns: int,
-    precomputed: tuple[GoState, torch.Tensor] | None = None,
-) -> Tree:
-    """:func:`expand_core` plus the parent-row write as an indexed torch
-    write (the non-kernel search path; the kernel path lands the row through
-    ``ops/rollout.write_rows``)."""
-    tree, new_row, did = expand_core(tree, node, probs, need, branch_num, max_turns, precomputed)
-    ar = torch.arange(node.shape[0], device=node.device)
-    tree.pstats[ar, node] = torch.where(did[:, None, None], new_row, tree.pstats[ar, node])
-    return tree
 
 
 def reachable_from_root(tree: Tree) -> torch.Tensor:

@@ -8,13 +8,13 @@ the clock, and :func:`device_trace` records a ``torch.profiler`` trace.
 
 The program's own tracing: :func:`span` and :func:`count`, placed at the
 layer boundaries of the search, the rules, the features, the nets and the
-GTP engine, record into the :class:`Recorder` that :func:`enable` turns on.
-Off (the default), a span is one shared no-op context and a count one
-global test.  On, a span records its name, host start and end
-(``time.perf_counter_ns``), its enclosing span and its request; each name's
-count, total and self time are folded from those records when the recorder
-is read.  While ``torch.profiler`` records, a span also opens
-``torch.profiler.record_function(name)``, so that it is a
+GTP engine, record into the :class:`Recorder` that :func:`enable` (or the
+block :func:`recording`) turns on.  Off (the default), a span is one shared
+no-op context and a count one global test.  On, a span records its name,
+host start and end (``time.perf_counter_ns``), its enclosing span and its
+request; each name's count, total and self time are folded from those
+records when the recorder is read.  While ``torch.profiler`` records, a
+span also opens ``torch.profiler.record_function(name)``, so that it is a
 ``user_annotation`` event on the trace's own clock beside the kernels.  No
 span synchronises: device time comes from the trace.  Each ``sync.<site>``
 span wraps exactly one host read of a device value, so its count is that
@@ -227,7 +227,8 @@ class _Span:
 
 
 _OFF = contextlib.nullcontext()
-_recorder: Recorder | None = None
+_recorder: Recorder | None = None  # where spans are recorded
+_counting: Recorder | None = None  # the recorder on, whose counters take the counts
 
 
 def span(name: str, request=None):
@@ -248,21 +249,47 @@ def span(name: str, request=None):
 
 def count(name: str, n: float = 1):
     """Add ``n`` to the counter ``name`` while a recorder is on."""
-    if _recorder is not None:
-        _recorder.counters[name] += n
+    rec = _counting
+    if rec is not None:
+        rec.counters[name] += n
 
 
-def enable() -> Recorder:
-    """Turn recording on into a fresh :class:`Recorder`; returns it."""
-    global _recorder
-    _recorder = Recorder()
-    return _recorder
+def enable(spans: bool = True) -> Recorder:
+    """Turn recording on into a fresh :class:`Recorder`, its counts and with
+    ``spans`` its spans (without, a timed run carries no span's cost);
+    returns it."""
+    global _recorder, _counting
+    _counting = Recorder()
+    _recorder = _counting if spans else None
+    return _counting
 
 
 def disable() -> Recorder | None:
     """Turn recording off; returns the recorder that was on, folded."""
-    global _recorder
-    rec, _recorder = _recorder, None
+    global _recorder, _counting
+    rec, _recorder, _counting = _counting, None, None
     if rec is not None:
         rec.fold()
     return rec
+
+
+@contextlib.contextmanager
+def recording(spans: bool = True):
+    """Record the block's counts, and with ``spans`` its spans, into a fresh
+    recorder that it yields; without ``spans`` span recording stays as it
+    was.  On exit, also on an error, the recording that was on before is
+    back, the block's counts added to its own."""
+    global _recorder, _counting
+    before = _recorder, _counting
+    rec = Recorder()
+    _counting = rec
+    if spans:
+        _recorder = rec
+    try:
+        yield rec
+    finally:
+        _recorder, _counting = before
+        rec.fold()
+        if _counting is not None:
+            for name, n in rec.counters.items():
+                _counting.counters[name] += n

@@ -2,7 +2,12 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught).  Kernel launches
+are the wrappers' ``ops.<kernel>`` counters (``utils/metrics``; a plain run
+on CPU tensors counts nothing), read from a recorder opened around what a
+phase counts, without spans where the phase times what it counts.  K2
+lands every expansion's rows on both search paths: where a phase records
+spans, once a ``search.expand`` span.
  1. build the CUDA kernels from ``bokego_tpu_torch/ops/csrc`` with nvcc;
  2. K1 ``descend_backprop`` on trees warmed by the port's own search
     (B=1024, Nmax=512, levels=6), at the main path's c and w and at w=0.5
@@ -37,8 +42,8 @@ Phases (any failure exits non-zero; nothing is caught):
  9. the serving path: the GTP engine in process with the shipped
     ``policy_17.pt`` and ``value_r2.pt``, a scripted session answered twice,
     in the default configuration (``-r 400``, non-kernel search, one tree:
-    one K3 and one K4 launch a rollout) and in the ``--fast`` one (``--forest 8 -r 400``: K1
-    and K2, launch counts read around the session): framing, every generated
+    one K3 and one K4 launch a rollout) and in the ``--fast`` one (``--forest 8 -r 400``: K1;
+    K2 in both, launch counts read around the session): framing, every generated
     vertex legal on a ``NativeBoard`` referee, no rebuild where the played
     child was in the tree, ``analyze``, ``final_score``, SGF out and in;
     every ``analyze`` tick lists the moves and visits of the top k children
@@ -64,7 +69,7 @@ Phases (any failure exits non-zero; nothing is caught):
     CPU: ``run_search`` at eval_every 1 and 2 and ``run_search_k`` at K = 4;
 13. one served session per search-mode flag with the shipped nets: ``--leaf-batch
     8`` and ``--leaf-batch 16 --forest 8`` at ``-r 400``, ``--simulate`` at
-    ``-r SIM_ROLLOUTS``: no K1/K2 launch, K3 for every descent, every root's visits grown by
+    ``-r SIM_ROLLOUTS``: no K1 launch, K2, K3 for every descent, every root's visits grown by
     exactly the rollouts of the chunks run, every vertex legal on the
     referee; s/genmove, rollouts/s, leaf evaluations with their batch and
     plies per playout are printed.
@@ -82,7 +87,7 @@ Phases (any failure exits non-zero; nothing is caught):
 19. the AlphaZero trajectory with the deterministic evaluator at temperature
     0 without noise, GPU against CPU, then one iteration at B=AZ_BATCH, AZ_MOVES moves,
     AZ_ROLLOUTS rollouts with the shipped nets (self-play and update timed apart);
-    phases 14-19 launch neither kernel (counts read around them);
+    phases 14-19 launch no K1, and K2 (counts read around them);
 20. every training entry point (``python -m bokego_tpu_torch.bin.<name>``)
     as a process on the GPU at a small size, ``alphazero --resume`` too, in
     three waves of processes side by side.
@@ -141,7 +146,7 @@ Phases (any failure exits non-zero; nothing is caught):
     levels=6;
 31. batched simulation throughput (``bokego_tpu_torch.sim_throughput``) at
     B=SIM_BATCH from ply SIM_PLIES, cut to SIM_TOOL_ROLLOUTS rollouts and
-    SIM_RUNS timed run: no K1/K2 launch, every root's visits grown by
+    SIM_RUNS timed run: no K1 launch, K2, every root's visits grown by
     exactly the runs' rollouts, the JAX tool's result line printed.
 
 32. the headline bench, ``python -m bokego_tpu_torch.bench``, as a process
@@ -165,7 +170,7 @@ Phases (any failure exits non-zero; nothing is caught):
     levels=6, bit for bit, timed;
 35. ``serving_latency`` at ``--time LATENCY_SECONDS``, one trial, in the
     default configuration and with a forest of 8: root visits grew on both
-    paths, no K1/K2 launch, one K3 and one K4 launch a rollout;
+    paths, no K1 launch, K2, one K3 and one K4 launch a rollout;
 36. ``python -m bokego_tpu_torch.parallel.scaling 2 SCALING_K --device
     cuda:0 --backend gloo`` (the bench's nets, its weight files named): exit
     0, actions and scores IDENTICAL;
@@ -185,8 +190,8 @@ figures, the bench phases' figures (with phase 37's forward times), the
 kernels' JSON record (K1 and K2
 once at the self-play path's shapes, once at the serving path's, once at
 the ``selfplay_sharded`` path's per-rank shapes with rank 0's launches of
-phase 23, once at the fidelity match's shapes with its FAST side's
-launches, the serving match's launches beside the serving path's shapes,
+phase 23, once at the fidelity match's shapes with its launches (K1 its
+FAST side's), the serving match's launches beside the serving path's shapes,
 which its ``--fast --forest 8`` side shares, phase 30's move's launches
 beside the records at its shapes, the bench path's launches (phase 33's
 first fp32 run, the warm-up move included) beside phases 2-3's records at
@@ -198,6 +203,7 @@ the device line ``{"ok": true, "device": {...}}``; the line before them is
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
@@ -214,6 +220,7 @@ import torch
 
 from bokego_tpu_torch.config import BENCH_POLICY_WEIGHTS, BENCH_VALUE_WEIGHTS, POLICY_WEIGHTS, VALUE_WEIGHTS
 from bokego_tpu_torch.mfu_report import bound_ms, k1_work
+from bokego_tpu_torch.utils import metrics
 
 MOVES = 20  # self-play moves of the self-play path
 SERVE_ROLLOUTS = 400  # rollouts per generated move of the served sessions
@@ -260,6 +267,29 @@ def check(ok, msg: str) -> None:
     """Fail the run (a raising check: asserts vanish under ``python -O``)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def kernel_calls(rec) -> collections.Counter:
+    """The port's kernel launches that ``rec`` (a program recorder, or
+    ``mfu_report.MoveCounts``) counted, by wrapper: its ``ops.<name>``
+    counters without the prefix, 0 for a kernel that never launched."""
+    return collections.Counter({k[len("ops."):]: int(n) for k, n in rec.counters.items() if k.startswith("ops.")})
+
+
+def on_card(recs: list, run, *args):
+    """``run(*args)`` with a fresh recorder on, appended to ``recs``: a phase
+    that holds the card's search against the CPU's counts the card's run."""
+    with metrics.recording() as rec:
+        out = run(*args)
+    recs.append(rec)
+    return out
+
+
+def search_calls(recs: list) -> tuple[collections.Counter, int, int]:
+    """Kernel launches, ``search.expand`` spans and rollouts over ``recs``."""
+    launched = sum((kernel_calls(r) for r in recs), collections.Counter())
+    return (launched, sum(r.phases["search.expand"].count for r in recs),
+            int(sum(r.counters["search.rollouts"] for r in recs)))
 
 
 def _events_ms(run, iters: int) -> float:
@@ -463,7 +493,6 @@ def _random_roots(batch: int, n_moves: int, seed: int):
 def check_plain_search(dev) -> None:
     """Phase 8: the non-kernel search on the GPU against the CPU."""
     from bokego_tpu_torch.config import SearchConfig
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts, tree as tr
     from tests.torch_fake_eval import fake_evaluator
 
@@ -485,25 +514,27 @@ def check_plain_search(dev) -> None:
         t = mcts.expand_roots(tr.compact(t) if compact else t, fev, None, cfg)
         return mcts.run_search(t, fev, None, cfg, 60)
 
-    rollout.reset_launches()
+    recs = []
     for eval_every in (1, 2):
         cfg = SearchConfig(expand_thresh=3, max_nodes=4096, eval_every=eval_every)
-        gpu, cpu = grow(cfg, dev), grow(cfg, "cpu")
+        gpu, cpu = on_card(recs, grow, cfg, dev), grow(cfg, "cpu")
         same(gpu, cpu, f"eval_every={eval_every}")
         check(int(gpu.n_nodes.max()) > 82, "non-kernel search did not expand below the root")
-        gpu, cpu = regrow(cfg, dev, True), regrow(cfg, "cpu", True)
+        gpu, cpu = on_card(recs, regrow, cfg, dev, True), regrow(cfg, "cpu", True)
         same(gpu, cpu, f"eval_every={eval_every}, after advance/compact/expand and a second search")
         check(gpu.root.tolist() == [0] * 4, "compact did not move the roots to slot 0")
-        loose = regrow(cfg, dev, False)
+        loose = on_card(recs, regrow, cfg, dev, False)
         check(
             torch.equal(mcts.choose_action(loose), mcts.choose_action(gpu))
             and torch.equal(loose.root_stats, gpu.root_stats)
             and int(gpu.n_nodes.max()) < int(loose.n_nodes.min()),
             "a search continued with and without compact chose differently",
         )
-    n = rollout.launches
-    check(n["descend_backprop"] == n["write_rows"] == 0, f"the non-kernel search launched K1 or K2: {n}")
-    check(n["descend_path"] == n["backprop_path"] > 0, f"the non-kernel search's GPU rollouts are not one K3 and one K4 each: {n}")
+    n, expansions, rollouts = search_calls(recs)
+    check(n["descend_backprop"] == 0 and n["write_rows"] == expansions > 0,
+          f"the non-kernel search launched K1, or K2 not once an expansion ({expansions}): {n}")
+    check(n["descend_path"] == n["backprop_path"] == rollouts,
+          f"the non-kernel search's {rollouts} rollouts are not one K3 and one K4 launch each: {n}")
     log("non-kernel search: GPU equals CPU at eval_every 1 and 2, before and after advance/compact/expand; compact leaves choices unchanged")
 
 
@@ -548,7 +579,6 @@ def serve_session(dev, params, fast: bool) -> dict:
     from bokego_tpu_torch.config import EngineConfig
     from bokego_tpu_torch.coords import NN, squash
     from bokego_tpu_torch.gtp.engine import GTPEngine
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts
 
     flags = ["-r", str(SERVE_ROLLOUTS), "--no-ponder"] + (["--fast", "--forest", str(SERVE_FOREST)] if fast else [])
@@ -563,7 +593,7 @@ def serve_session(dev, params, fast: bool) -> dict:
     eng.warm_up()
     torch.cuda.synchronize()
     log(f"engine ({name}): warm-up {time.monotonic() - t0:.2f} s, chunk of 8 rollouts {1e3 * eng._chunk_s:.2f} ms")
-    rollout.reset_launches()
+    rec = metrics.enable(spans=False)  # the session times its moves
 
     def ok(cmd, want=None):
         out = eng.send(cmd)
@@ -575,7 +605,7 @@ def serve_session(dev, params, fast: bool) -> dict:
         out = eng.send(cmd)
         check(out == f"? {want}\n\n", f"{name}: {cmd!r} -> {out!r}, expected an error {want!r}")
 
-    gen_ms, gen_launches, gen_chunks, gen_full = [], [], [], []
+    gen_ms, gen_calls, gen_chunks, gen_full = [], [], [], []
     run_chunk, rollout_n = eng._run_chunk, eng.rollout
 
     def recorded_chunk(n):
@@ -594,13 +624,13 @@ def serve_session(dev, params, fast: bool) -> dict:
         referee = native.replay(eng._move_history, 5.5)
         gen_chunks.append([])
         gen_full.append(False)
-        rebuilds, before = eng.rebuilds, dict(rollout.launches)
+        rebuilds, before = eng.rebuilds, kernel_calls(rec)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         vertex = ok(f"genmove {color}")
         torch.cuda.synchronize()
         gen_ms.append((time.monotonic() - t0) * 1e3)
-        gen_launches.append({k: rollout.launches[k] - before[k] for k in before})
+        gen_calls.append(kernel_calls(rec) - before)
         check(re.fullmatch(r"[A-HJ][1-9]|PASS", vertex) is not None, f"{name}: genmove gave {vertex!r}")
         referee.play(squash(vertex))  # raises on an illegal move
         check(eng.state.board[0].cpu().numpy().tolist() == referee.board.tolist(), f"{name}: board differs from the referee's")
@@ -637,7 +667,7 @@ def serve_session(dev, params, fast: bool) -> dict:
     check(gen_chunks[0] == full_chunks, f"{name}: the first genmove stopped early: {gen_chunks[0]}")
     if fast:
         # every K1 launch of a move belongs to a chunk it ran, and none is missing
-        k1 = [g["descend_backprop"] for g in gen_launches]
+        k1 = [g["descend_backprop"] for g in gen_calls]
         want_k1 = [sum(len(mcts.rollout_groups(c, 8)) for c in chunks) for chunks in gen_chunks]
         check(k1 == want_k1, f"K1 launches per genmove {k1}, expected {want_k1} from the chunks {gen_chunks}")
         check(k1[0] == 69, f"K1 launches of a full genmove {k1[0]}, expected 69")
@@ -694,7 +724,7 @@ def serve_session(dev, params, fast: bool) -> dict:
         f"{ANALYZE_TICKS * len(tied)} ticks; ticks with tied visits among the listed children: "
         + ", ".join(f"{w} {n} of {ANALYZE_TICKS}" for w, n in tied.items())
     )
-    per_gen = {k: sum(g[k] for g in gen_launches) / len(gen_launches) for k in gen_launches[0]}
+    per_gen = {k: n / len(gen_calls) for k, n in sum(gen_calls, collections.Counter()).items()}
     log(
         f"engine ({name}): genmove at -r {SERVE_ROLLOUTS} ms {[round(x, 1) for x in gen_ms]}; launches per genmove {per_gen}; "
         f"timed move -t 1: {timed:.3f} s (overrun {timed - 1.0:+.3f} s, chunk {1e3 * eng._chunk_s:.2f} ms) -> {vertex}; "
@@ -702,10 +732,13 @@ def serve_session(dev, params, fast: bool) -> dict:
     )
     ok("quit", "")
     check(eng.send("protocol_version") is None, f"{name}: the engine answered after quit")
-    counts = dict(rollout.launches)
-    check((counts["descend_backprop"] > 0) == (counts["write_rows"] > 0) == fast
-          and (counts["descend_path"] > 0) == (counts["backprop_path"] > 0) == (not fast),
-          f"{name}: kernel launches of the session {counts}")
+    metrics.disable()
+    counts = kernel_calls(rec)
+    # expansions land their rows through K2 on both paths
+    rollouts = 0 if fast else rec.counters["search.rollouts"]
+    check((counts["descend_backprop"] > 0) == fast and counts["write_rows"] > 0
+          and counts["descend_path"] == counts["backprop_path"] == rollouts,
+          f"{name}: kernel launches of the session {counts}, non-kernel rollouts {rollouts}")
     return counts
 
 
@@ -713,28 +746,27 @@ def check_leaf_parallel_search(dev) -> None:
     """Phases 11 and 12: leaf-parallel search and simulation mode on the GPU
     against the CPU (tolerance 0)."""
     from bokego_tpu_torch.config import SearchConfig
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import leafpar, mcts
     from tests.torch_fake_eval import fake_evaluator, onehot_evaluator, stones_evaluator
 
-    rollout.reset_launches()
+    recs = []
     roots = _random_roots(8, 12, seed=4)
     cfg = SearchConfig(expand_thresh=2, max_nodes=2048)
     n = 128
     for ev_name, ev in (("plain evaluation", fake_evaluator()), ("fused evaluation", stones_evaluator())):
         for k in (1, 4, 8):
-            grown = []
-            for where in (dev, "cpu"):
+            def grow(where):
                 t = mcts.init_trees(roots.map(lambda x: x.to(where)), ev, None, cfg)
-                grown.append(leafpar.run_search_k(t, ev, None, cfg, n, k))
-            gpu, cpu = grown
+                return leafpar.run_search_k(t, ev, None, cfg, n, k)
+
+            gpu, cpu = on_card(recs, grow, dev), grow("cpu")
             _same_trees(gpu, cpu, f"leaf-parallel K={k}, {ev_name}")
             check(gpu.root_stats[:, 0].tolist() == [float(n)] * 8, f"leaf-parallel K={k}: root visits {gpu.root_stats[:, 0].tolist()}")
             check(int(gpu.n_nodes.min()) > 82, f"leaf-parallel K={k} did not expand below the root")
             check(not bool(gpu.pstats[:, :, 1].any()), f"leaf-parallel K={k} left a virtual loss in Wq")
             if k == 1:
                 seq = mcts.init_trees(roots.map(lambda x: x.to(dev)), ev, None, cfg)
-                seq = mcts.run_search(seq, ev, None, cfg, n)
+                seq = on_card(recs, mcts.run_search, seq, ev, None, cfg, n)
                 check(
                     torch.equal(seq.pstats, gpu.pstats) and torch.equal(seq.root_stats, gpu.root_stats)
                     and torch.equal(seq.value.nan_to_num(7.0), gpu.value.nan_to_num(7.0)),
@@ -750,22 +782,22 @@ def check_leaf_parallel_search(dev) -> None:
         ("eval_every=1", dict(), 0), ("eval_every=2", dict(eval_every=2), 0), ("leaf-parallel K=4", dict(), 4),
     ):
         cfg = SearchConfig(expand_thresh=2, max_nodes=1024, no_sim=False, max_turns=60, **kw)
-        grown = []
-        for where in (dev, "cpu"):
+        def grow_sim(where):
             gen = torch.Generator(device=where).manual_seed(6)
             t = mcts.init_trees(sim_roots.map(lambda x: x.to(where)), ev, None, cfg)
             if k:
-                grown.append(leafpar.run_search_k(t, ev, None, cfg, 24, k, gen=gen))
-            else:
-                grown.append(mcts.run_search(t, ev, None, cfg, 24, gen=gen))
-        gpu, cpu = grown
+                return leafpar.run_search_k(t, ev, None, cfg, 24, k, gen=gen)
+            return mcts.run_search(t, ev, None, cfg, 24, gen=gen)
+
+        gpu, cpu = on_card(recs, grow_sim, dev), grow_sim("cpu")
         _same_trees(gpu, cpu, f"simulation mode, {what}")
         wq = gpu.root_stats[:, 1].tolist()
         check(all(abs(x) <= 24 for x in wq) and len(set(wq)) > 1, f"simulation mode, {what}: root Wq {wq}")
         check(bool(gpu.pstats[:, :, 1].any()), f"simulation mode, {what}: no reward reached an edge")
-    n = rollout.launches
-    check(n["descend_backprop"] == n["write_rows"] == 0 and n["descend_path"] > 0,
-          f"leaf-parallel search or simulation mode launched K1 or K2, or descended without K3: {n}")
+    n, expansions, _ = search_calls(recs)
+    check(n["descend_backprop"] == 0 and n["write_rows"] == expansions > 0 and n["descend_path"] > 0,
+          f"leaf-parallel search or simulation mode launched K1, or K2 not once an expansion ({expansions}), "
+          f"or descended without K3: {n}")
     log("simulation mode (one-hot playout policy): GPU equals CPU at eval_every 1 and 2 and leaf-parallel at K=4 (B=4, 24 rollouts)")
 
 
@@ -776,7 +808,6 @@ def serve_search_mode(dev, params, flags: list[str], moves: int) -> None:
     from bokego_tpu_torch.config import EngineConfig
     from bokego_tpu_torch.coords import squash
     from bokego_tpu_torch.gtp import engine as gtp_engine
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts
 
     name = " ".join(flags)
@@ -806,7 +837,7 @@ def serve_search_mode(dev, params, flags: list[str], moves: int) -> None:
     eng.warm_up()
     torch.cuda.synchronize()
     log(f"engine ({name}): warm-up {time.monotonic() - t0:.2f} s, chunk of 8 {1e3 * eng._chunk_s:.2f} ms")
-    rollout.reset_launches()
+    recorder = metrics.enable(spans=False)  # the session times its moves
 
     def ok(cmd, want=None):
         out = eng.send(cmd)
@@ -883,8 +914,9 @@ def serve_search_mode(dev, params, flags: list[str], moves: int) -> None:
     )
     ok("quit", "")
     check(eng.send("protocol_version") is None, f"{name}: the engine answered after quit")
-    n = rollout.launches
-    check(n["descend_backprop"] == n["write_rows"] == 0 and n["descend_path"] > 0, f"{name}: kernel launches {n}")
+    metrics.disable()
+    n = kernel_calls(recorder)
+    check(n["descend_backprop"] == 0 and n["write_rows"] > 0 and n["descend_path"] > 0, f"{name}: kernel launches {n}")
 
 
 def _timed_match(black_flags: str, white_flags: str, path: str) -> tuple[bool, float, list]:
@@ -1161,15 +1193,14 @@ def check_epilogue(dev) -> dict:
         for name in ("fused", "unfused", "unfused", "fused"):  # in turns, each warmed first
             forwards[name]()
             times[name].append(_events_ms(lambda: [forwards[name]() for _ in range(5)], 5))
-        epilogue.reset_launches()
         with tempfile.TemporaryDirectory() as tmp:
-            with device_trace(tmp):
+            with device_trace(tmp), metrics.recording(spans=False) as rec:
                 for _ in range(3):
                     net(fts)
                 torch.cuda.synchronize()
             with open(os.path.join(tmp, "trace.json")) as f:
                 events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
-    launches = epilogue.launches["bias_add_relu"]
+    launches = int(rec.counters["ops.bias_add_relu"])
     check(launches == 3 * 79, f"epilogue launches in 3 forwards: {launches}, expected 237")
     # The last two forwards' launches: a profiler started late in a process
     # can drop the first kernels of its window.
@@ -1283,7 +1314,6 @@ def training_phases(dev) -> dict:
     from bokego_tpu_torch.config import POLICY_WEIGHTS, SearchConfig, VALUE_WEIGHTS
     from bokego_tpu_torch.env import rules
     from bokego_tpu_torch.models import nets
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.train import alphazero as az
     from bokego_tpu_torch.train import data, gendata, genvals, reinforce, sl
     from tests.torch_fake_eval import fake_evaluator
@@ -1291,7 +1321,7 @@ def training_phases(dev) -> dict:
     figures = {}
     policy = nets.load_policy(POLICY_WEIGHTS, device=dev)
     value = nets.load_value(VALUE_WEIGHTS, device=dev)
-    rollout.reset_launches()
+    rec = metrics.enable(spans=False)  # the phases time what they count
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
 
     # 14. gendata: self-play of the shipped policy into packed shards (x8 D4)
@@ -1381,8 +1411,10 @@ def training_phases(dev) -> dict:
         f"self-play {timings[0]['selfplay_s']:.3f} s, update {timings[0]['update_s']:.3f} s")
     del pol, val, state
 
-    counts = dict(rollout.launches)
-    check(counts["descend_backprop"] == counts["write_rows"] == 0, f"K1/K2 launches on the training phases: {counts}")
+    metrics.disable()
+    counts = kernel_calls(rec)
+    check(counts["descend_backprop"] == 0 and counts["write_rows"] > 0,
+          f"the training phases launched K1, or their searches no K2: {counts}")
     log(f"training phases: kernel launches {counts}")
     del policy, value
     torch.cuda.empty_cache()
@@ -1486,19 +1518,18 @@ def _dp_rank(mesh, path: str) -> None:
 
     from bokego_tpu_torch.config import BENCH_CONFIG
     from bokego_tpu_torch.device import fp32_only
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.parallel.selfplay import selfplay_sharded
     from tests.torch_fake_eval import fake_evaluator
 
     fp32_only()
     job = torch.load(path, weights_only=True)
-    rollout.reset_launches()
     _sync(mesh.device)
     t0 = time.monotonic()
-    res = selfplay_sharded(mesh, None, fake_evaluator(), BENCH_CONFIG, job["batch"], job["moves"], BENCH_CONFIG.n_rollouts)
+    with metrics.recording(spans=False) as rec:
+        res = selfplay_sharded(mesh, None, fake_evaluator(), BENCH_CONFIG, job["batch"], job["moves"], BENCH_CONFIG.n_rollouts)
     _sync(mesh.device)
     out = {"selfplay": [res.actions.cpu(), res.scores.cpu(), *(t.cpu() for t in res.final.tensors())],
-           "selfplay_s": time.monotonic() - t0, "launches": dict(rollout.launches)}
+           "selfplay_s": time.monotonic() - t0, "launches": kernel_calls(rec)}
     cpu_group = mesh.group if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
     cpu_mesh = dataclasses.replace(mesh, device=torch.device("cpu"), group=cpu_group)
     for kind in ("policy", "value"):
@@ -1564,7 +1595,6 @@ def dp_phases(dev, params) -> tuple[dict, dict, dict]:
     from bokego_tpu_torch.config import BENCH_BATCH as BATCH, BENCH_CONFIG as CFG
     from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
     from bokego_tpu_torch.models import nets
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.parallel import mesh as mesh_lib
     from bokego_tpu_torch.parallel.selfplay import selfplay, selfplay_sharded
     from bokego_tpu_torch.search import mcts
@@ -1588,14 +1618,14 @@ def dp_phases(dev, params) -> tuple[dict, dict, dict]:
             ms, results = {name: [] for name in runs}, {}
             for name in ("selfplay", "selfplay_sharded", "selfplay_sharded", "selfplay"):
                 torch.cuda.synchronize()
-                rollout.reset_launches()
                 t0 = time.monotonic()
-                results[name] = runs[name]()
+                with metrics.recording(spans=False) as rec:
+                    results[name] = runs[name]()
                 torch.cuda.synchronize()
                 ms[name].append(1e3 * (time.monotonic() - t0) / DP_MOVES)
-                launched = dict(rollout.launches)
+                launched = kernel_calls(rec)
                 check(launched["descend_backprop"] == 51 * DP_MOVES, f"{name}: K1 launches {launched}")
-                check(launched["write_rows"] > 0, f"{name}: K2 never launched")
+                check(launched["write_rows"] > 0, f"{name}: K2 never launched {launched}")
                 if name == "selfplay_sharded":
                     counts = launched
             same_real = float((results["selfplay_sharded"].actions == results["selfplay"].actions).float().mean())
@@ -1683,7 +1713,6 @@ def match_phases(dev) -> tuple[dict, dict, dict, dict]:
     from bokego_tpu_torch.match import common, config_match, fastmode_fidelity, policy_curve, serving_match
     from bokego_tpu_torch.match import weights_match
     from bokego_tpu_torch.models import nets
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts
 
     weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "weights")
@@ -1751,24 +1780,25 @@ def match_phases(dev) -> tuple[dict, dict, dict, dict]:
     gen = torch.Generator(device=dev).manual_seed(fastmode_fidelity.SEED)
     wins, total = 0, 0
     _sync(dev)
-    rollout.reset_launches()
     t0 = time.monotonic()
-    for fast_is_black in (True, False):
-        games = config_match.play(gen, params, ev, FIDELITY_GAMES, fastmode_fidelity.FAST, fastmode_fidelity.EXACT,
-                                  FIDELITY_ROLLOUTS, FIDELITY_ROLLOUTS, fast_is_black, device=dev)
-        check(bool(torch.isfinite(games.scores).all()) and not bool(games.final.invalid.any()), "fidelity: bad finals")
-        wins += int(games.won.sum())
-        total += games.won.numel()
+    with metrics.recording(spans=False) as rec:
+        for fast_is_black in (True, False):
+            games = config_match.play(gen, params, ev, FIDELITY_GAMES, fastmode_fidelity.FAST, fastmode_fidelity.EXACT,
+                                      FIDELITY_ROLLOUTS, FIDELITY_ROLLOUTS, fast_is_black, device=dev)
+            check(bool(torch.isfinite(games.scores).all()) and not bool(games.final.invalid.any()), "fidelity: bad finals")
+            wins += int(games.won.sum())
+            total += games.won.numel()
     _sync(dev)
     dt = time.monotonic() - t0
-    fid_counts, fid_rollouts = dict(rollout.launches), rollout.kernel_rollouts
+    fid_counts = kernel_calls(rec)
+    fid_rollouts = fid_counts["descend_backprop.rollouts"]
     check(fid_counts["descend_backprop"] == len(groups) * fast_moves,
           f"fidelity: K1 launches {fid_counts}, expected {len(groups)} x {fast_moves}")
     check(fid_rollouts == FIDELITY_ROLLOUTS * fast_moves, f"fidelity: K1 rollouts {fid_rollouts}")
-    check(fid_counts["write_rows"] > 0, f"fidelity: K2 never launched {fid_counts}")
+    check(fid_counts["write_rows"] > 0, f"fidelity: K2 never launched {fid_counts}")  # both sides expand through it
     pw = wins / total
     log(f"M3 fidelity ({FIDELITY_GAMES} a colour, {FIDELITY_ROLLOUTS} rollouts): fast winrate {pw:.3f} +/- "
-        f"{common.interval(pw, total, 1e-9):.3f} (95% CI) over {total} games in {dt:.0f}s; FAST launches {fid_counts}, "
+        f"{common.interval(pw, total, 1e-9):.3f} (95% CI) over {total} games in {dt:.0f}s; launches {fid_counts} (K1 FAST's), "
         f"{fid_rollouts} K1 rollouts = {len(groups)} launches x {fast_moves} searched moves, at most 8 rollouts a launch "
         f"(TPU record at 400 rollouts, 64 a colour: 0.586 +- 0.085)")
     figures["fidelity"] = dict(wins=wins, games=total, seconds=dt, launches=fid_counts, k1_rollouts=fid_rollouts,
@@ -1790,7 +1820,7 @@ def match_phases(dev) -> tuple[dict, dict, dict, dict]:
     check(MATCH_OPENING % 2 == 0, "the opening leaves black to move")
     gen = torch.Generator(device=dev).manual_seed(11)
     _sync(dev)
-    rollout.reset_launches()
+    rec = metrics.enable(spans=False)  # the match times its moves
     t0 = time.monotonic()
     results = []
     for g in range(MATCH_GAMES):
@@ -1804,7 +1834,8 @@ def match_phases(dev) -> tuple[dict, dict, dict, dict]:
             f"({res.how}), {len(res.moves)} moves, genmove s mean {sum(res.seconds) / len(res.seconds):.3f} "
             f"max {max(res.seconds):.3f}")
     dt = time.monotonic() - t0
-    sm_counts = dict(rollout.launches)
+    metrics.disable()
+    sm_counts = kernel_calls(rec)
     check(sm_counts["descend_backprop"] > 0, f"serving match: the --fast side launched no K1 {sm_counts}")
     a_wins = sum(r.a_won for r in results)
     # B's genmoves: the opening has MATCH_OPENING plies, so the first generated move is black's
@@ -1827,7 +1858,6 @@ def tool_phases(dev, params) -> tuple[dict, dict, dict]:
     of phase 30's move, the kernel records at its shapes and the figures."""
     from bokego_tpu_torch import mfu_report, sim_throughput
     from bokego_tpu_torch.config import BENCH_BATCH as BATCH, BENCH_CONFIG as CFG
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts
 
     # 30. the roofline report for one synchronised move at the bench configuration
@@ -1842,10 +1872,10 @@ def tool_phases(dev, params) -> tuple[dict, dict, dict]:
     for what, c in (("split move", rep["split_counts"]), ("timed move", counts)):
         n = len(c.forwards)
         check(1 <= n <= 51 and c.forwards == [BATCH] * n, f"mfu_report {what}: forwards {c.forwards} at B={BATCH}")
-        check(c.launches["write_rows"] == n, f"mfu_report {what}: K2 launches {c.launches}, forwards {n}")
-        check(c.k1_calls == 51 and c.launches["descend_backprop"] == 51,
-              f"mfu_report {what}: K1 calls {c.k1_calls}, launches {c.launches}, expected 51")
-        check(c.kernel_rollouts == CFG.n_rollouts, f"mfu_report {what}: K1 rollouts {c.kernel_rollouts}")
+        launched = kernel_calls(c)
+        check(launched["write_rows"] == n, f"mfu_report {what}: K2 launches {launched}, forwards {n}")
+        check(launched["descend_backprop"] == 51, f"mfu_report {what}: K1 launches {launched}, expected 51")
+        check(launched["descend_backprop.rollouts"] == CFG.n_rollouts, f"mfu_report {what}: K1 rollouts {launched}")
     n = len(counts.forwards)
     f_net = mfu_report.net_flops(mfu_report.CHANNELS, BATCH)
     check(rep["net_flops"] == f_net, f"forward FLOPs {rep['net_flops']}, net_flops {f_net}")
@@ -1865,7 +1895,7 @@ def tool_phases(dev, params) -> tuple[dict, dict, dict]:
         mfu_report=dict(
             seconds=time.monotonic() - t0, forward_ms=rep["forward_ms"], move_ms=rep["move_ms"], split_ms=rep["split"],
             conv_ms=rep["conv_ms"], net_gflop=[f / 1e9 for f in f_net], move_tflop=[f / 1e12 for f in rep["move_flops"]],
-            k1_bytes=rep["k1_bytes"], launches=counts.launches, forwards=n, conv_kernels=rep["kernels"],
+            k1_bytes=rep["k1_bytes"], launches=kernel_calls(counts), forwards=n, conv_kernels=rep["kernels"],
         )
     )
     log(f"mfu_report (nets {BENCH_NETS}): {len(rep['split_counts'].forwards)} and {n} forwards (as many K2 launches; "
@@ -1873,11 +1903,12 @@ def tool_phases(dev, params) -> tuple[dict, dict, dict]:
         f"{figures['mfu_report']['seconds']:.1f} s")
 
     # 31. batched simulation throughput, cut to SIM_TOOL_ROLLOUTS rollouts and SIM_RUNS timed run
-    rollout.reset_launches()
     t0 = time.monotonic()
-    res, rate = sim_throughput.run(dev, SIM_BATCH, SIM_TOOL_ROLLOUTS, SIM_PLIES, runs=SIM_RUNS)
-    sim_counts = dict(rollout.launches)
-    check(sim_counts["descend_backprop"] == sim_counts["write_rows"] == 0, f"sim_throughput launched K1/K2: {sim_counts}")
+    with metrics.recording(spans=False) as rec:
+        res, rate = sim_throughput.run(dev, SIM_BATCH, SIM_TOOL_ROLLOUTS, SIM_PLIES, runs=SIM_RUNS)
+    sim_counts = kernel_calls(rec)
+    check(sim_counts["descend_backprop"] == 0 and sim_counts["write_rows"] > 0,
+          f"sim_throughput launched K1, or no K2: {sim_counts}")
     check(bool((res.trees.root_stats[:, 0] == (SIM_RUNS + 1) * SIM_TOOL_ROLLOUTS).all()),
           "sim_throughput: root visits are not the runs' rollouts")
     check(rate is not None and rate > 0 and res.forwards[0] >= SIM_TOOL_ROLLOUTS, f"sim_throughput: rate {rate}")
@@ -1886,7 +1917,7 @@ def tool_phases(dev, params) -> tuple[dict, dict, dict]:
         policy_forwards=res.forwards, wall_s=time.monotonic() - t0,
     )
     log(f"sim_throughput: every root's N grew by exactly {SIM_TOOL_ROLLOUTS} a run; launches {sim_counts}")
-    return counts.launches, records, figures
+    return kernel_calls(counts), records, figures
 
 
 def _bench_run(dev, batch: int, moves: int, dtype: str) -> tuple[dict, torch.Tensor]:
@@ -1903,16 +1934,16 @@ def _bench_run(dev, batch: int, moves: int, dtype: str) -> tuple[dict, torch.Ten
     with mfu_report.counting(ev) as (cev, counts):
         out, states, done = bench.run(dev, bench.Settings(batch, moves, BENCH_CONFIG.n_rollouts, BENCH_CONFIG, dtype),
                                       (params, cev))
-    launches = counts.launches
+    calls = kernel_calls(counts)
     what = f"bench B={batch} {dtype}"
-    check(launches["descend_backprop"] == 51 * (moves + 1), f"{what}: K1 launches {launches}, expected 51 a move")
-    check(launches["write_rows"] > 0, f"{what}: K2 never launched")
+    check(calls["descend_backprop"] == 51 * (moves + 1), f"{what}: K1 launches {calls}, expected 51 a move")
+    check(calls["write_rows"] == len(counts.forwards), f"{what}: K2 launches {calls}, forwards {len(counts.forwards)}")
     check(out["value"] > 0 and not bool(states.invalid.any()), f"{what}: {out}")
     check(int(states.turn.min()) == moves, f"{what}: turns {states.turn.min()}..{states.turn.max()}")
     ms = 60e3 * batch / out["value"] / moves  # the line's value counts games of ``moves`` moves
     check(len(counts.forwards) >= moves + 1 and counts.forwards == [batch] * len(counts.forwards),
           f"{what}: forwards {counts.forwards}")
-    figures = dict(ms_per_move=ms, games_per_min_80_moves=batch * 60e3 / (80 * ms), launches=launches,
+    figures = dict(ms_per_move=ms, games_per_min_80_moves=batch * 60e3 / (80 * ms), launches=calls,
                    forwards_per_move=len(counts.forwards) / (moves + 1), done=int(done.sum()))
     return figures, states.board.cpu()
 
@@ -1925,7 +1956,6 @@ def bench_phases(dev) -> tuple[dict, dict, dict, dict]:
     from bokego_tpu_torch import bench, serving_latency
     from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG, POLICY_WEIGHTS, VALUE_WEIGHTS
     from bokego_tpu_torch.models import nets
-    from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2022,7 +2052,7 @@ def bench_phases(dev) -> tuple[dict, dict, dict, dict]:
         f"over what earlier phases hold")
 
     # 35. serving_latency: the default configuration and --forest 8
-    rollout.reset_launches()
+    rec = metrics.enable(spans=False)  # the tool times its rollouts
     latency = {}
     for forest in (1, 8):
         eng = serving_latency.make_engine(dev, LATENCY_SECONDS, False, forest, 1)
@@ -2033,9 +2063,10 @@ def bench_phases(dev) -> tuple[dict, dict, dict, dict]:
             log(f"serving_latency (forest {forest}, --time {LATENCY_SECONDS}): {path}: {grown / dt:,.0f} rollouts/s "
                 f"(root visits grew by {grown:.0f} in {dt:.3f} s)")
         del eng
-    n = rollout.launches
-    check(n["descend_backprop"] == n["write_rows"] == 0 and n["descend_path"] == n["backprop_path"] > 0,
-          f"serving_latency's default search launched K1/K2, or rolled out without K3/K4: {n}")
+    metrics.disable()
+    n = kernel_calls(rec)
+    check(n["descend_backprop"] == 0 and n["write_rows"] > 0 and n["descend_path"] == n["backprop_path"] > 0,
+          f"serving_latency's default search launched K1 or no K2, or rolled out without K3/K4: {n}")
     figures["serving_latency"] = latency
 
     # 36. parallel.scaling over 2 gloo ranks sharing cuda:0
@@ -2242,12 +2273,13 @@ def main() -> int:
 
     # 6. the main path.
     torch.cuda.synchronize()
-    rollout.reset_launches()
     t0 = time.monotonic()
-    res = selfplay(params, ev, CFG, BATCH, MOVES, CFG.n_rollouts, device=dev)
+    with metrics.recording(spans=False) as rec:
+        res = selfplay(params, ev, CFG, BATCH, MOVES, CFG.n_rollouts, device=dev)
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
-    counts, k1_rollouts = dict(rollout.launches), rollout.kernel_rollouts
+    counts = kernel_calls(rec)
+    k1_rollouts = counts["descend_backprop.rollouts"]
     check(counts["descend_backprop"] > 0 and counts["write_rows"] > 0, f"a kernel of the main path never launched: {counts}")
     check(counts["descend_path"] == counts["backprop_path"] == 0, f"the kernel path launched K3/K4: {counts}")
     groups = mcts.rollout_groups(CFG.n_rollouts, CFG.eval_every)
@@ -2286,9 +2318,9 @@ def main() -> int:
     kernels = [
         dict(
             name=name, route="cuda", source="bokego_tpu_torch/ops/csrc/rollout.cu",
-            replaces=replaces[name], path=path, launches=launches[name], **recs[name],
+            replaces=replaces[name], path=path, launches=calls[name], **recs[name],
         )
-        for path, launches, recs in (
+        for path, calls, recs in (
             ("selfplay", counts, records), ("gtp_engine_fast", serve_counts, records_serving),
             ("selfplay_sharded", dp_counts, dp_records), ("fastmode_fidelity", fid_counts, fid_records),
             ("serving_match", sm_counts, records_serving), ("mfu_report", mfu_counts, mfu_records),

@@ -1,5 +1,5 @@
 """AlphaGo Zero's residual tower (``models/resnet.py``): the module against
-the plain float32 reference (``tests/reference_agz.py``), the folded and
+the plain float32 reference (``benchmark/reference/agz.py``), the folded and
 bf16 inference forms, the seeded initialisation at the published sizes, and
 the joint evaluator in the search and in self-play.
 
@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import ast
 import json
-import sys
 from pathlib import Path
 
 import pytest
@@ -24,10 +23,9 @@ from bokego_tpu_torch.models import inference, resnet
 from bokego_tpu_torch.parallel.selfplay import selfplay
 from bokego_tpu_torch.search import mcts
 from bokego_tpu_torch.utils import metrics
+from benchmark.reference import agz as ref
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "tests"))
-import reference_agz as ref  # noqa: E402
 
 # bf16 keeps 8 bits of mantissa (a relative rounding of 2**-9 a value):
 # over the 9 layers of the (3, 16) net, rounded activations and weights give
@@ -164,11 +162,8 @@ def _search_cfg(use_kernel: bool) -> SearchConfig:
 def test_pv_evaluator_in_the_search(use_kernel):
     params = {"pv": _small(1, 8).inference()}
     states = resnet.random_positions(2, (3, 30), 5, "cpu")
-    rec = metrics.enable()
-    try:
+    with metrics.recording() as rec:
         actions, trees = mcts.search(states, mcts.pv_evaluator(), params, _search_cfg(use_kernel), gen=torch.Generator().manual_seed(1))
-    finally:
-        metrics.disable()
     assert rules.legal_mask(states).gather(1, actions[:, None]).all()
     assert torch.equal(trees.root_stats[:, 0], torch.full((4,), 16.0))
     forwards = rec.phases["nets.pv"].count
@@ -200,9 +195,11 @@ def test_selfplay_with_the_tower():
 
 
 def test_reference_copies_are_identical_and_import_nothing_of_the_program():
-    mine, bench = ROOT / "tests/reference_agz.py", ROOT / "benchmark/reference/agz.py"
-    assert mine.read_bytes() == bench.read_bytes()
-    for node in ast.walk(ast.parse(mine.read_text())):
+    """The tower's float32 reference is one file, ``benchmark/reference/agz.py``,
+    which these tests and the benchmark's check share; it imports only
+    ``math`` and ``torch``."""
+    assert not (ROOT / "tests/reference_agz.py").exists()
+    for node in ast.walk(ast.parse(Path(ref.__file__).read_text())):
         if isinstance(node, (ast.Import, ast.ImportFrom)):
             names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""]
             assert all(n.split(".")[0] in {"__future__", "math", "torch"} for n in names), names

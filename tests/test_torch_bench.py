@@ -71,6 +71,7 @@ from bokego_tpu_torch.config import BENCH_BATCH, BENCH_CONFIG, BENCH_POLICY_WEIG
 from bokego_tpu_torch.models import convert, inference, nets
 from bokego_tpu_torch.parallel import scaling
 from bokego_tpu_torch.search import mcts
+from bokego_tpu_torch.utils import metrics
 from tests.torch_port_util import assert_states_equal, random_positions, to_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -336,12 +337,21 @@ def test_one_move_matches_jax_bench(kernel, moves, batch, n_rollouts):
     for _ in range(moves):
         rng, r = jax.random.split(rng)
         js, jdone = jax_move(r, js, jdone)
-        with mfu_report.counting(ev) as (cev, counts):
+        with metrics.recording() as rec, mfu_report.counting(ev) as (cev, counts):
             ts, tdone = bench.one_move(ts, tdone, cev, port, cfg, n_rollouts)
         forwards.append(len(counts.forwards))
         assert_states_equal(js, ts)
         np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
-        assert counts.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}  # CPU tensors: the plain versions
+        # CPU tensors take the plain versions: no kernel launch.  The search's
+        # spans: one expansion a forward; the kernel path one K1 call a rollout
+        # group and no descent, the plain path one descent and one backprop a
+        # rollout
+        assert not [k for k in counts.counters if k.startswith("ops.")]
+        assert counts.counters["search.rollouts"] == rec.counters["search.rollouts"] == n_rollouts
+        k1 = len(mcts.rollout_groups(n_rollouts, cfg.eval_every)) if kernel else 0
+        spans = {k: rec.phases[k].count for k in ("search.k1", "search.descend", "search.backprop", "search.expand")}
+        assert spans == {"search.k1": k1, "search.descend": 0 if kernel else n_rollouts,
+                         "search.backprop": 0 if kernel else n_rollouts, "search.expand": len(counts.forwards)}
     assert int(ts.turn.min()) == moves
     if moves > jcfg.max_turns:
         assert bool(tdone.all())

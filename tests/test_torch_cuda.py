@@ -80,8 +80,8 @@ def test_kernels_match_plain(dev, thresh, rollouts, levels, w):
     kw = dict(c=4.0, w=w, use_value=True, levels=levels)
     p_kernel, p_plain = pstats.clone(), pstats.clone()
     rs_kernel, rs_plain = trees.root_stats.clone(), trees.root_stats.clone()
-    before = dict(rollout.launches)
-    res_k = rollout.descend_backprop(p_kernel, value, trees.root, rs_kernel, **kw)
+    with metrics.recording() as rec:
+        res_k = rollout.descend_backprop(p_kernel, value, trees.root, rs_kernel, **kw)
     res_p = rollout.descend_backprop_plain(p_plain, value, trees.root, rs_plain, **kw)
     torch.cuda.synchronize()
     assert torch.equal(res_k, res_p)
@@ -94,12 +94,14 @@ def test_kernels_match_plain(dev, thresh, rollouts, levels, w):
     for mask in (torch.zeros(batch, dtype=torch.bool, device=dev),
                  torch.ones(batch, dtype=torch.bool, device=dev),
                  torch.rand(batch, device=dev) < 0.5):
-        rollout.write_rows(p_kernel, node, rows, mask)
+        with metrics.recording() as rec_rows:
+            rollout.write_rows(p_kernel, node, rows, mask)
         rollout.write_rows_plain(p_plain, node, rows, mask)
         torch.cuda.synchronize()
         assert torch.equal(p_kernel, p_plain)
-    assert rollout.launches["descend_backprop"] == before["descend_backprop"] + 1
-    assert rollout.launches["write_rows"] == before["write_rows"] + 3
+        assert rec_rows.counters == {"ops.write_rows": 1}
+    # each wrapper counts its launch; the plain versions called directly count nothing
+    assert rec.counters == {"ops.descend_backprop": 1, "ops.descend_backprop.rollouts": 1}
 
 
 @pytest.mark.parametrize("levels,w,use_value", [(6, 1.0, True), (8, 0.5, True), (2, 1.0, False)])
@@ -111,14 +113,14 @@ def test_fused_rollouts_match_plain_and_single_launches(dev, levels, w, use_valu
     kw = dict(c=4.0, w=w, use_value=use_value, levels=levels)
     p_fused, p_plain, p_single = pstats.clone(), pstats.clone(), pstats.clone()
     rs_fused, rs_plain, rs_single = (trees.root_stats.clone() for _ in range(3))
-    rollout.reset_launches()
-    res_f = rollout.descend_backprop(p_fused, value, trees.root, rs_fused, rollouts=8, **kw)
-    assert (rollout.launches["descend_backprop"], rollout.kernel_rollouts) == (1, 8)
-    res_p = rollout.descend_backprop_plain(p_plain, value, trees.root, rs_plain, rollouts=8, **kw)
-    for _ in range(8):
-        res_s = rollout.descend_backprop(p_single, value, trees.root, rs_single, **kw)
-    torch.cuda.synchronize()
-    assert (rollout.launches["descend_backprop"], rollout.kernel_rollouts) == (9, 16)
+    with metrics.recording() as rec:
+        res_f = rollout.descend_backprop(p_fused, value, trees.root, rs_fused, rollouts=8, **kw)
+        assert (rec.counters["ops.descend_backprop"], rec.counters["ops.descend_backprop.rollouts"]) == (1, 8)
+        res_p = rollout.descend_backprop_plain(p_plain, value, trees.root, rs_plain, rollouts=8, **kw)
+        for _ in range(8):
+            res_s = rollout.descend_backprop(p_single, value, trees.root, rs_single, **kw)
+        torch.cuda.synchronize()
+    assert (rec.counters["ops.descend_backprop"], rec.counters["ops.descend_backprop.rollouts"]) == (9, 16)
     for res, p, rs in ((res_p, p_plain, rs_plain), (res_s, p_single, rs_single)):
         assert torch.equal(res_f, res)
         assert torch.equal(p_fused, p)
@@ -129,14 +131,15 @@ def test_fused_rollouts_match_plain_and_single_launches(dev, levels, w, use_valu
 
 def test_selfplay_gpu_equals_cpu(dev):
     cfg = _cfg(3)
-    rollout.reset_launches()
-    r_gpu = selfplay(None, fake_evaluator(), cfg, 8, 3, 40, device=dev)
-    assert rollout.launches["write_rows"] > 0
+    with metrics.recording() as rec:
+        r_gpu = selfplay(None, fake_evaluator(), cfg, 8, 3, 40, device=dev)
+    n = rec.counters
+    assert n["ops.write_rows"] == rec.phases["search.expand"].count > 0
     # the kernel path bypasses the non-kernel search's K3/K4
-    assert rollout.launches["descend_path"] == rollout.launches["backprop_path"] == 0
+    assert n["ops.descend_path"] == n["ops.backprop_path"] == 0
     # 40 rollouts at eval_every=2: step 0, 19 pairs, one light step; 3 moves
-    assert rollout.launches["descend_backprop"] == 3 * len(mcts.rollout_groups(40, cfg.eval_every)) == 63
-    assert rollout.kernel_rollouts == 3 * 40
+    assert n["ops.descend_backprop"] == 3 * len(mcts.rollout_groups(40, cfg.eval_every)) == 63
+    assert n["ops.descend_backprop.rollouts"] == 3 * 40
     r_cpu = selfplay(None, fake_evaluator(), cfg, 8, 3, 40, device="cpu")
     assert torch.equal(r_gpu.actions.cpu(), r_cpu.actions)
     assert torch.equal(r_gpu.final.board.cpu(), r_cpu.final.board)
@@ -188,22 +191,27 @@ def test_non_kernel_search_gpu_equals_cpu(dev, eval_every):
     second search: the same trees on the GPU and on the CPU."""
     cfg = SearchConfig(expand_thresh=3, max_nodes=1024, eval_every=eval_every)
     ev = fake_evaluator()
-    out = []
-    rollout.reset_launches()
+    out, recs = [], []
     for where in (dev, "cpu"):
-        roots = st.new_game_batch(4, device=where)
-        roots = rules.play_moves(roots, torch.tensor([[40, 30, 20, 10], [41, 31, 21, 11]], device=where))
-        t = mcts.run_search(mcts.init_trees(roots, ev, None, cfg), ev, None, cfg, 80)
-        t, ok = mcts.advance_root(t, mcts.choose_action(t))
-        assert bool(ok.all())
-        t = mcts.expand_roots(tree.compact(t), ev, None, cfg)
-        out.append(mcts.run_search(t, ev, None, cfg, 40))
+        with metrics.recording() as rec:
+            roots = st.new_game_batch(4, device=where)
+            roots = rules.play_moves(roots, torch.tensor([[40, 30, 20, 10], [41, 31, 21, 11]], device=where))
+            t = mcts.run_search(mcts.init_trees(roots, ev, None, cfg), ev, None, cfg, 80)
+            t, ok = mcts.advance_root(t, mcts.choose_action(t))
+            assert bool(ok.all())
+            t = mcts.expand_roots(tree.compact(t), ev, None, cfg)
+            out.append(mcts.run_search(t, ev, None, cfg, 40))
+        recs.append(rec)
     gpu, cpu = out
     for f in ("pstats", "root_stats", "n_nodes", "parent", "action", "expanded", "terminal", "root"):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
     assert torch.equal(gpu.value.cpu().nan_to_num(7.0), cpu.value.nan_to_num(7.0))
-    # the GPU run's 120 rollouts: one K3 and one K4 launch each, no K1/K2
-    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 120, "backprop_path": 120}
+    # the GPU run's 120 rollouts: one K3 and one K4 launch each, no K1; one K2
+    # launch an expansion, as many as the CPU run's; the CPU run launches nothing
+    n = recs[0].counters
+    assert (n["ops.descend_backprop"], n["ops.descend_path"], n["ops.backprop_path"]) == (0, 120, 120)
+    assert n["ops.write_rows"] == recs[0].phases["search.expand"].count == recs[1].phases["search.expand"].count > 0
+    assert not [k for k in recs[1].counters if k.startswith("ops.")]
 
 
 TREE_FIELDS = ("pstats", "root_stats", "n_nodes", "parent", "action", "expanded", "terminal", "root")
@@ -228,19 +236,26 @@ def test_leaf_parallel_search_gpu_equals_cpu(dev, K, ev_fn):
     order of k on both), and K=1 the same as ``run_search``."""
     cfg = SearchConfig(expand_thresh=1, branch_num=8, max_nodes=1024)
     ev = ev_fn()
-    rollout.reset_launches()
-    out = []
+    out, recs = [], []
     for where in (dev, "cpu"):
-        t = mcts.init_trees(_midgame_roots(where), ev, None, cfg)
-        out.append(leafpar.run_search_k(t, ev, None, cfg, 96, K))
+        with metrics.recording() as rec:
+            t = mcts.init_trees(_midgame_roots(where), ev, None, cfg)
+            out.append(leafpar.run_search_k(t, ev, None, cfg, 96, K))
+        recs.append(rec)
     _assert_gpu_equals_cpu(*out)
     assert out[0].root_stats[:, 0].tolist() == [96.0] * 8 and int(out[0].expanded.sum(1).min()) >= 4
+    # K descents a step through K3 on the GPU; leafpar's own backprop, no K4;
+    # one K2 launch an expansion, as many as the CPU run's; the CPU run
+    # launches nothing
+    n = recs[0].counters
+    assert (n["ops.descend_backprop"], n["ops.descend_path"], n["ops.backprop_path"]) == (0, 96, 0)
+    assert n["ops.write_rows"] == recs[0].phases["search.expand"].count == recs[1].phases["search.expand"].count > 0
+    assert not [k for k in recs[1].counters if k.startswith("ops.")]
     if K == 1:
-        seq = mcts.run_search(mcts.init_trees(_midgame_roots(dev), ev, None, cfg), ev, None, cfg, 96)
+        with metrics.recording() as rec:
+            seq = mcts.run_search(mcts.init_trees(_midgame_roots(dev), ev, None, cfg), ev, None, cfg, 96)
         assert torch.equal(seq.pstats, out[0].pstats) and torch.equal(seq.root_stats, out[0].root_stats)
-    # K descents a step through K3 on the GPU; leafpar's own backprop, no K4
-    n_k3 = 96 + (96 if K == 1 else 0)
-    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": n_k3, "backprop_path": n_k3 - 96}
+        assert (rec.counters["ops.descend_path"], rec.counters["ops.backprop_path"]) == (96, 96)
 
 
 @pytest.mark.parametrize("leaf_batch", [1, 4])
@@ -270,13 +285,9 @@ def test_profiler_hooks_on_the_card(dev, tmp_path):
 
     m = metrics.Metrics()
     x = torch.ones(1 << 20, device=dev)
-    rec = metrics.enable()
-    try:
-        with metrics.device_trace(str(tmp_path)) as prof:
-            with metrics.span("add"), m.phase("add", block_on={"x": x}):
-                x += 1
-    finally:
-        metrics.disable()
+    with metrics.recording() as rec, metrics.device_trace(str(tmp_path)) as prof:
+        with metrics.span("add"), m.phase("add", block_on={"x": x}):
+            x += 1
     assert m.phases["add"].count == rec.phases["add"].count == 1 and float(x[0]) == 2.0
     with open(os.path.join(tmp_path, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
@@ -292,7 +303,7 @@ def _syncs_by_span(run, stacks: list | None = None):
     ``stacks``, where given, takes the names of all the spans open at each
     synchronisation, outermost first."""
     seen, outside = [], []
-    rec = metrics.enable()
+    rec = None
 
     def innermost():
         open_spans = [s[0] for s in rec.spans if s[2] == 0]
@@ -306,17 +317,14 @@ def _syncs_by_span(run, stacks: list | None = None):
             if seen[-1] is None:
                 outside.append(f"{filename}:{lineno}")
 
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = show
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                run()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-    finally:
-        metrics.disable()
+    with metrics.recording() as rec, warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
     return seen, rec, outside
 
 
@@ -365,7 +373,6 @@ def test_served_rollout_is_two_launches_and_one_read(dev):
     eng.running = True
     for cmd in ("play black E5", "genmove white", "play black D4"):  # warm: tables, cuDNN, the kernels' build
         assert eng.send(cmd).startswith("=")
-    rollout.reset_launches()
     stacks = []
 
     def run():
@@ -373,8 +380,10 @@ def test_served_rollout_is_two_launches_and_one_read(dev):
 
     seen, rec, outside = _syncs_by_span(run, stacks)
     n = int(rec.counters["search.rollouts"])
-    assert n == 32 == rec.counters["search.path_kernel"] == rec.phases["search.descend"].count
-    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": n, "backprop_path": n}
+    c = rec.counters
+    assert n == 32 == c["ops.descend_path"] == c["ops.backprop_path"] == rec.phases["search.descend"].count
+    # no K1; one K2 launch an expansion
+    assert c["ops.descend_backprop"] == 0 and c["ops.write_rows"] == rec.phases["search.expand"].count > 0
     in_rollouts = [
         s[-1] for s in stacks
         if "gtp.search" in s and "search.eval_and_expand" not in s and "search.init_trees" not in s
@@ -453,8 +462,8 @@ def test_path_kernels_match_plain(dev, batch, w, use_value, sim):
     levels = SearchConfig().max_depth - 1
     pstats, value, terminal, expanded, root, root_stats = _path_trees(dev, batch, 256, batch + int(4 * w))
     kw = dict(c=1.5, w=w, levels=levels, expand_thresh=3)
-    rollout.reset_launches()
-    k = rollout.descend_path(pstats, value, terminal, expanded, root, root_stats, **kw)
+    with metrics.recording() as rec:
+        k = rollout.descend_path(pstats, value, terminal, expanded, root, root_stats, **kw)
     p = rollout.descend_path_plain(pstats, value, terminal, expanded, root, root_stats, **kw)
     torch.cuda.synchronize()
     width = p.rows.shape[1]
@@ -470,12 +479,13 @@ def test_path_kernels_match_plain(dev, batch, w, use_value, sim):
     sim_reward = torch.where(torch.rand(batch, device=dev) < 0.5, 1.0, -1.0) if sim else None
     p_k, p_p = pstats.clone(), pstats.clone()
     rs_k, rs_p = root_stats.clone(), root_stats.clone()
-    rollout.backprop_path(p_k, value, rs_k, k, sim_reward, use_value)
+    with metrics.recording() as rec_back:
+        rollout.backprop_path(p_k, value, rs_k, k, sim_reward, use_value)
     rollout.backprop_path_plain(p_p, value, rs_p, p.leaf, p.rows, p.acts, p.depth, sim_reward, use_value)
     torch.cuda.synchronize()
     assert torch.equal(p_k, p_p) and torch.equal(rs_k, rs_p)
     assert torch.equal(rs_k[:, 0], root_stats[:, 0] + 1)
-    assert rollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 1, "backprop_path": 1}
+    assert (rec.counters, rec_back.counters) == ({"ops.descend_path": 1}, {"ops.backprop_path": 1})
 
     # nothing to do anywhere: every leaf valued and expanded
     calm = (value.nan_to_num(0.0), terminal, torch.ones_like(expanded), root, root_stats)
@@ -489,7 +499,9 @@ def test_path_kernels_match_plain(dev, batch, w, use_value, sim):
 )
 def test_engine_session_on_the_card(dev, name):
     """Ten commands answered on the card; the kernel configuration launches
-    both kernels, the other configurations neither."""
+    K1, the others K3 for every descent (and K4 for every rollout outside
+    leaf-parallel search); every configuration lands each expansion's rows
+    with one K2 launch."""
     fast = name == "fast_forest2"
     cfg = {
         "default": SearchConfig(expand_thresh=2, max_nodes=512),
@@ -501,19 +513,23 @@ def test_engine_session_on_the_card(dev, name):
     ecfg = EngineConfig(time_lim=None, n_rollouts=rollouts, pondering=False, forest_size=2 if "forest2" in name else 1)
     eng = GTPEngine(fake_evaluator(), None, cfg, ecfg, device=dev)
     eng.running = True
-    rollout.reset_launches()
-    replies = [eng.send(c) for c in (
-        "protocol_version", "boardsize 9", "clear_board", "play black E5", "genmove white",
-        "genmove black", "undo", "play black E5", "showboard", "final_score",
-    )]
+    with metrics.recording() as rec:
+        replies = [eng.send(c) for c in (
+            "protocol_version", "boardsize 9", "clear_board", "play black E5", "genmove white",
+            "genmove black", "undo", "play black E5", "showboard", "final_score",
+        )]
     assert [r[0] for r in replies] == ["="] * 7 + ["?", "=", "="]
     assert replies[0] == "= 2\n\n" and replies[7] == "? illegal move\n\n"
     assert not bool(eng.state.invalid[0]) and eng._turn() == 2
-    n = rollout.launches
-    assert (n["descend_backprop"] > 0) == (n["write_rows"] > 0) == fast
+    n = rec.counters
+    assert (n["ops.descend_backprop"] > 0) == fast
+    assert n["ops.write_rows"] == rec.phases["search.expand"].count > 0
     # every other configuration descends through K3; leaf-parallel search backs up on its own
-    assert (n["descend_path"] > 0) == (not fast)
-    assert (n["backprop_path"] > 0) == (name in ("default", "simulate"))
+    assert (n["ops.descend_path"] > 0) == (not fast)
+    if name in ("default", "simulate"):
+        assert n["ops.descend_path"] == n["ops.backprop_path"] == n["search.rollouts"]
+    else:
+        assert n["ops.backprop_path"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -533,10 +549,10 @@ def test_epilogue_kernel_matches_plain(dev, batch, channels, dtype, residual):
     y, bias = activation(), torch.randn(channels, device=dev, generator=gen).to(dtype)
     r = activation() if residual else None
     want = epilogue.bias_add_relu_plain(y.clone(), bias, r)
-    before = epilogue.launches["bias_add_relu"]
-    got = epilogue.bias_add_relu(y, bias, r)
+    with metrics.recording() as rec:
+        got = epilogue.bias_add_relu(y, bias, r)
     torch.cuda.synchronize()
-    assert got is y and epilogue.launches["bias_add_relu"] == before + 1
+    assert got is y and rec.counters == {"ops.bias_add_relu": 1}
     assert torch.equal(y, want)
     assert bool((y == 0).any()) and bool((y > 0).any())  # both sides of the ReLU
 
@@ -556,19 +572,15 @@ def test_tower_forward_is_79_epilogue_launches_and_matches_the_unfused_one(dev, 
 
     from bokego_tpu_torch.features import features_batch
     from bokego_tpu_torch.models import inference, resnet
-    from tests import reference_agz as ref
+    from benchmark.reference import agz as ref
 
     module = resnet.init_resnet(0, dev)
     net = module.inference()
     fts = features_batch(resnet.random_positions(256, (0, 20, 40, 60), 21, dev))
     assert fts.shape[0] == 1024
-    epilogue.reset_launches()
-    rec = metrics.enable()
-    try:
+    with metrics.recording() as rec:
         probs, _ = inference.policy_value(net, fts)
-    finally:
-        metrics.disable()
-    assert rec.counters["nets.epilogue"] == epilogue.launches["bias_add_relu"] == 79
+    assert rec.counters["ops.bias_add_relu"] == 79
     assert bool(torch.isfinite(probs).all())
     with torch.inference_mode():
         fused = net(fts)

@@ -51,13 +51,10 @@ def test_plain_epilogue_is_float32_arithmetic_rounded_once(dtype, residual):
 def test_wrapper_runs_the_plain_version_in_place_on_the_cpu(residual):
     y, bias, r = _inputs(torch.bfloat16, residual)
     want = epilogue.bias_add_relu_plain(y.clone(), bias, r)
-    rec = metrics.enable()
-    try:
+    with metrics.recording() as rec:
         got = epilogue.bias_add_relu(y, bias, r)
-    finally:
-        metrics.disable()
     assert got is y and torch.equal(y, want)
-    assert rec.counters["nets.epilogue"] == 1
+    assert rec.counters == {}  # the plain version launches nothing
 
 
 def _bad_inputs(case: str):
@@ -90,7 +87,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case, error):
     assert torch.equal(y, kept)
 
 
-def test_serving_copy_is_the_folded_class_and_the_module_is_not():
+def test_serving_copy_is_the_folded_class_and_the_module_is_not(monkeypatch):
     net = _small(2, 8)
     folded = net.inference()
     assert type(folded) is resnet.FoldedResNetPV and type(net) is resnet.ResNetPV
@@ -98,15 +95,14 @@ def test_serving_copy_is_the_folded_class_and_the_module_is_not():
     assert len(convs) == 1 + 2 * 2 + 2 and all(c.bias is not None for c in convs)
     assert not any(isinstance(m, torch.nn.BatchNorm2d) for m in folded.modules())
     fts = features_batch(resnet.random_positions(2, (4, 30), 9, "cpu"))
-    rec = metrics.enable()
-    try:
-        with torch.inference_mode():
-            net(fts)
-            assert rec.counters["nets.epilogue"] == 0  # the float32 module keeps its own forward
-            folded(fts)
-    finally:
-        metrics.disable()
-    assert rec.counters["nets.epilogue"] == 1 + 2 * 2
+    passes = []
+    wrapper = epilogue.bias_add_relu
+    monkeypatch.setattr(epilogue, "bias_add_relu", lambda *a: passes.append(1) or wrapper(*a))
+    with torch.inference_mode():
+        net(fts)
+        assert not passes  # the float32 module keeps its own forward
+        folded(fts)
+    assert len(passes) == 1 + 2 * 2
 
 
 class _OpLog(TorchDispatchMode):

@@ -102,13 +102,9 @@ def test_device_trace_and_annotate_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("the CPU-only branches; the card-side ones run in tests/test_torch_cuda.py")
     log_dir = os.path.join(tmp_path, "trace")
-    rec = metrics.enable()
-    try:
-        with metrics.device_trace(log_dir):
-            with metrics.span("add"):
-                torch.ones(8) + 1
-    finally:
-        metrics.disable()
+    with metrics.recording() as rec, metrics.device_trace(log_dir):
+        with metrics.span("add"):
+            torch.ones(8) + 1
     with open(os.path.join(log_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "add" and e.get("cat") == "user_annotation" for e in events)

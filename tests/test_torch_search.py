@@ -18,6 +18,7 @@ from bokego_tpu_torch.config import SearchConfig as TConfig
 from bokego_tpu_torch.ops import rollout as trollout
 from bokego_tpu_torch.parallel.selfplay import selfplay as tselfplay
 from bokego_tpu_torch.search import mcts as tmcts
+from bokego_tpu_torch.utils import metrics
 from tests.test_mcts import fake_evaluator as jax_fake_evaluator
 from tests.torch_fake_eval import fake_evaluator
 from tests.torch_port_util import assert_states_equal, random_positions, to_port
@@ -39,15 +40,19 @@ def test_search_matches_jax_kernel_path():
     jt = jax.jit(lambda t: jmcts.run_search(jax.random.PRNGKey(0), t, jev, None, JConfig(**cfg), n))(jt)
     ja = np.asarray(jax.vmap(jmcts.choose_action)(jt))
 
-    trollout.reset_launches()
-    ta, tt = tmcts.search(to_port(js), fake_evaluator(), None, TConfig(**cfg), n)
+    with metrics.recording() as rec:
+        ta, tt = tmcts.search(to_port(js), fake_evaluator(), None, TConfig(**cfg), n)
     for f in TREE_FIELDS:
         np.testing.assert_array_equal(getattr(tt, f).numpy(), np.asarray(getattr(jt, f)), err_msg=f)
     assert_states_equal(jt.nodes, tt.nodes, fields=("board", "ko", "turn", "last_move"))
     np.testing.assert_array_equal(ta.numpy(), ja)
     assert int(tt.n_nodes.max()) > 82  # the search expanded below the root
-    # CPU tensors take the plain versions: no kernel launches
-    assert trollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}
+    # CPU tensors take the plain versions: no kernel launch.  One K1 call a
+    # rollout group, expansions, and no K3/K4 descent
+    assert not [k for k in rec.counters if k.startswith("ops.")]
+    assert rec.phases["search.k1"].count == len(tmcts.rollout_groups(n, cfg["eval_every"])) == 51
+    assert rec.counters["search.rollouts"] == n
+    assert rec.phases["search.expand"].count > 1 and "search.descend" not in rec.phases
 
 
 @pytest.mark.parametrize(
@@ -122,7 +127,6 @@ def test_non_kernel_search_matches_jax(eval_every, expand_thresh, n_rollouts):
     jt = jmcts.init_trees(jax.random.PRNGKey(0), js, jev, None, JConfig(**cfg))
     jt = jax.jit(lambda t: jmcts.run_search(jax.random.PRNGKey(0), t, jev, None, JConfig(**cfg), n_rollouts))(jt)
 
-    trollout.reset_launches()
     ta, tt = tmcts.search(to_port(js), fake_evaluator(), None, TConfig(**cfg), n_rollouts)
     for f in TREE_FIELDS:
         np.testing.assert_array_equal(getattr(tt, f).numpy(), np.asarray(getattr(jt, f)), err_msg=f)
@@ -169,12 +173,16 @@ def test_unported_paths_raise(cfg):
     ts = to_port(random_positions(22, 2, 4))
     tcfg = TConfig(**dict(cfg, max_turns=12))
     gen = torch.Generator().manual_seed(0)
-    trollout.reset_launches()
-    trees = tmcts.init_trees(ts, fake_evaluator(), None, tcfg)
-    trees = tmcts.search_step(trees, fake_evaluator(), None, tcfg, gen=gen)
-    trees = tmcts.run_search(trees, fake_evaluator(), None, tcfg, 4, gen=gen)
+    with metrics.recording() as rec:
+        trees = tmcts.init_trees(ts, fake_evaluator(), None, tcfg)
+        trees = tmcts.search_step(trees, fake_evaluator(), None, tcfg, gen=gen)
+        trees = tmcts.run_search(trees, fake_evaluator(), None, tcfg, 4, gen=gen)
     assert trees.root_stats[:, 0].tolist() == [5.0, 5.0]
-    assert trollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}
+    # CPU tensors: no kernel launch.  Both run the non-kernel search: one
+    # descent and one backprop a rollout, no K1
+    assert not [k for k in rec.counters if k.startswith("ops.")]
+    assert rec.phases["search.descend"].count == rec.phases["search.backprop"].count == 5
+    assert rec.phases["search.expand"].count > 0 and "search.k1" not in rec.phases
     if not tcfg.no_sim:
         assert bool((trees.root_stats[:, 1] != 0).all())  # five playouts of +-1 each
         with pytest.raises(ValueError, match="Generator"):
@@ -205,19 +213,19 @@ def test_path_wrappers_take_the_plain_versions_on_the_cpu(w, use_value):
     trees.pstats[:, :, 1] = torch.randn(trees.pstats[:, :, 1].shape, generator=torch.Generator().manual_seed(0))
     args = (trees.pstats, trees.value, trees.terminal, trees.expanded, trees.root, trees.root_stats)
     kw = dict(c=cfg.exploration_weight, w=w, levels=cfg.max_depth - 1, expand_thresh=cfg.expand_thresh)
-    trollout.reset_launches()
-    got, want = trollout.descend_path(*args, **kw), trollout.descend_path_plain(*args, **kw)
-    for f in trollout.PathDescent._fields:
-        assert torch.equal(getattr(got, f), getattr(want, f)), f
-    assert int(got.depth.max()) >= (2 if w == 1.0 else 1)  # random Wq steers toward fresh edges
-    reward = torch.tensor([1.0, -1.0] * 3)
-    p_got, p_want = trees.pstats.clone(), trees.pstats.clone()
-    rs_got, rs_want = trees.root_stats.clone(), trees.root_stats.clone()
-    trollout.backprop_path(p_got, trees.value, rs_got, got, reward, use_value)
-    trollout.backprop_path_plain(p_want, trees.value, rs_want, *want[:3], want.depth, reward, use_value)
+    with metrics.recording() as rec:
+        got, want = trollout.descend_path(*args, **kw), trollout.descend_path_plain(*args, **kw)
+        for f in trollout.PathDescent._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert int(got.depth.max()) >= (2 if w == 1.0 else 1)  # random Wq steers toward fresh edges
+        reward = torch.tensor([1.0, -1.0] * 3)
+        p_got, p_want = trees.pstats.clone(), trees.pstats.clone()
+        rs_got, rs_want = trees.root_stats.clone(), trees.root_stats.clone()
+        trollout.backprop_path(p_got, trees.value, rs_got, got, reward, use_value)
+        trollout.backprop_path_plain(p_want, trees.value, rs_want, *want[:3], want.depth, reward, use_value)
     assert torch.equal(p_got, p_want) and torch.equal(rs_got, rs_want)
     assert not torch.equal(p_got, trees.pstats)
-    assert trollout.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0}
+    assert rec.counters == {}
 
 
 @pytest.mark.parametrize("expand_thresh,eval_every", [(0, 1), (3, 2), (10, 2), (100, 1)])

@@ -18,6 +18,7 @@ from bokego_tpu.config import SearchConfig as JConfig
 from bokego_tpu.search import mcts as jmcts
 from bokego_tpu.search import tree as jtree
 from bokego_tpu_torch.config import SearchConfig as TConfig
+from bokego_tpu_torch.ops import rollout as trollout
 from bokego_tpu_torch.search import mcts as tmcts
 from bokego_tpu_torch.search import tree as ttree
 from tests.test_mcts import fake_evaluator as jax_fake_evaluator
@@ -185,8 +186,9 @@ def test_root_winrate_matches_jax(grown):
 
 
 def test_expand_matches_jax():
-    """``tree.expand`` (the indexed row write) with a top-k branch limit and
-    one refused expansion."""
+    """The search's expansion, ``expand_core`` and then ``rollout.write_rows``
+    (its plain version on CPU tensors), with a top-k branch limit and one
+    refused expansion."""
     js = random_positions(34, BATCH, 8)
     rng = np.random.default_rng(6)
     probs = rng.dirichlet(np.ones(81), BATCH).astype(np.float32)
@@ -195,7 +197,9 @@ def test_expand_matches_jax():
     node = jnp.zeros(BATCH, jnp.int32)
     jt = jax.vmap(lambda t, n, p, nd: jtree.expand(t, n, p, nd, 5, 80))(jt, node, jnp.asarray(probs), jnp.asarray(need))
     tt = ttree.empty_tree(to_port(js), 128, 80)
-    tt = ttree.expand(tt, torch.zeros(BATCH, dtype=torch.int64), torch.from_numpy(probs), torch.from_numpy(need), 5, 80)
+    root = torch.zeros(BATCH, dtype=torch.int64)
+    tt, rows, did = ttree.expand_core(tt, root, torch.from_numpy(probs), torch.from_numpy(need), 5, 80)
+    trollout.write_rows(tt.pstats, root, rows, did)
     assert_trees_equal(jt, tt)
     counts = tt.n_nodes.tolist()  # at most the top 5, fewer where one is illegal
     assert counts[2] == 1 and all(2 <= c <= 6 for c in counts[:2] + counts[3:])

@@ -40,6 +40,7 @@ from bokego_tpu_torch import mfu_report, sim_throughput
 from bokego_tpu_torch.config import SearchConfig as TConfig
 from bokego_tpu_torch.models import nets
 from bokego_tpu_torch.search import mcts
+from bokego_tpu_torch.utils import metrics
 from tests.test_mcts import fake_evaluator as jax_fake_evaluator
 from tests.test_torch_models import ATOL, _flax_vars, _jax_evaluator, _port_net
 from tests.test_torch_playout import jax_onehot_policy
@@ -111,21 +112,24 @@ def test_bound_ms_takes_the_larger_time():
 
 @pytest.mark.parametrize("batch,rollouts,eval_every", [(8, 16, 4), (8, 16, 8), (4, 13, 3)])
 def test_move_counts_match_the_jax_tool_model(batch, rollouts, eval_every):
-    """Forwards and K1 calls of a move on the kernel path (plain versions
-    on the CPU: no launch is counted).  At these sizes every eval step has
+    """Forwards and K1 calls of a move on the kernel path (plain versions on
+    the CPU: no launch is counted).  At these sizes every eval step has
     work, so the forwards run are the JAX tool's model."""
     cfg = dataclasses.replace(mfu_report.BENCH_CONFIG, n_rollouts=rollouts, eval_every=eval_every)
     params = {"policy": nets.init_policy(16, seed=0, device="cpu"), "value": nets.init_value(16, seed=1, device="cpu")}
     states = sim_throughput.midgame(torch.Generator().manual_seed(0), lambda s: onehot_policy(None, s), batch, 6, "cpu")
-    plain = mcts.launch_rollouts
-    with mfu_report.counting(mcts.net_evaluator()) as (ev, counts):
-        mfu_report.search_move(states, ev, params, cfg)
-    assert mcts.launch_rollouts is plain
+    with metrics.recording() as outer:
+        with mfu_report.counting(mcts.net_evaluator()) as (ev, counts):
+            mfu_report.search_move(states, ev, params, cfg)
+        metrics.count("after")  # counting gave the outer recorder back, with its counts
+    assert outer.counters == {**counts.counters, "after": 1} and counts.counters["search.rollouts"] == rollouts
     assert len(counts.forwards) == math.ceil(rollouts / eval_every) + 1 == mfu_report.eval_model(rollouts, eval_every)
     assert counts.forwards == [batch] * len(counts.forwards)
-    assert counts.k1_calls == len(mcts.rollout_groups(rollouts, eval_every))
-    assert counts.k1_rollouts == rollouts
-    assert counts.launches == {"descend_backprop": 0, "write_rows": 0, "descend_path": 0, "backprop_path": 0} and counts.kernel_rollouts == 0
+    assert not [k for k in counts.counters if k.startswith("ops.")]
+    # counting records no span: the outer recorder's spans are the move's, one
+    # K1 call a rollout group, one expansion a forward, no K3/K4 descent
+    assert outer.phases["search.k1"].count == len(mcts.rollout_groups(rollouts, eval_every))
+    assert outer.phases["search.expand"].count == len(counts.forwards) and "search.descend" not in outer.phases
     # the replay rollout by rollout gives the trees of the grouped search, and counts K1's bytes
     n_bytes, n_ops, replayed = mfu_report.k1_move_work(states, mcts.net_evaluator(), params, cfg)
     grouped = mcts.run_search(mcts.init_trees(states, mcts.net_evaluator(), params, cfg), mcts.net_evaluator(),
@@ -169,13 +173,13 @@ def test_executed_forwards_match_the_jax_package(batch, rollouts, eval_every):
     jax.block_until_ready(jt)
     jax.effects_barrier()
 
-    with mfu_report.counting(fake_evaluator()) as (tev, counts):
+    with metrics.recording() as rec, mfu_report.counting(fake_evaluator()) as (tev, counts):
         trees = mcts.run_search(mcts.init_trees(to_port(js), tev, None, TConfig(**cfg)), tev, None, TConfig(**cfg),
                                 rollouts)
     np.testing.assert_array_equal(trees.root_stats.numpy(), np.asarray(jt.root_stats))
     assert counts.forwards == calls == [batch] * len(calls)
     assert len(calls) < mfu_report.eval_model(rollouts, eval_every)
-    assert counts.k1_calls == len(mcts.rollout_groups(rollouts, eval_every))
+    assert rec.phases["search.k1"].count == len(mcts.rollout_groups(rollouts, eval_every))
 
 
 def _run(module: str, *args: str) -> str:

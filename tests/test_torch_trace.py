@@ -36,11 +36,8 @@ def tracing_off():
 
 def _traced(fn):
     """``fn()`` with a fresh recorder on; returns its result and the recorder."""
-    rec = metrics.enable()
-    try:
+    with metrics.recording() as rec:
         return fn(), rec
-    finally:
-        metrics.disable()
 
 
 def _roots(batch: int = 4, plies: int = 6):
@@ -205,13 +202,16 @@ def test_traced_genmove_equals_untraced(monkeypatch):
     assert all(s[4] == genmove[4] for s in recorder.spans if s[1] >= genmove[1])
 
 
-def test_path_kernel_counter_is_zero_on_the_cpu():
-    """On CPU tensors the descents take K3's plain version: a ``genmove``
-    counts its rollouts and descents, and no ``search.path_kernel``."""
+def test_genmove_descends_once_a_rollout_and_launches_nothing_on_the_cpu():
+    """A ``genmove`` of the engine's default search: one descent and one
+    backprop a rollout, expansions, no K1; on CPU tensors the kernels'
+    plain versions run and no ``ops.*`` launch is counted."""
     _, recorder = _traced(_engine_genmove)
-    assert recorder.counters["search.rollouts"] == 16 == recorder.phases["search.descend"].count
-    assert recorder.counters["search.path_kernel"] == 0
-    assert recorder.phases["sync.descend_level"].count >= 16
+    ph = recorder.phases
+    assert recorder.counters["search.rollouts"] == 16 == ph["search.descend"].count == ph["search.backprop"].count
+    assert ph["search.expand"].count > 0 and "search.k1" not in ph
+    assert not [k for k in recorder.counters if k.startswith("ops.")]
+    assert ph["sync.descend_level"].count >= 16
 
 
 def _innermost_open(rec) -> str | None:
