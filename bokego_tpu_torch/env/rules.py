@@ -8,7 +8,11 @@ area, incremental Zobrist); ``tests/test_torch_env.py`` holds them equal.
 
 The two label propagations (:func:`group_info`, :func:`area_colors`) are
 host loops that stop once every board of the batch has reached its fixed
-point, the counterpart of the vmapped ``lax.while_loop``.
+point, the counterpart of the vmapped ``lax.while_loop``.  On CUDA tensors
+:func:`leaf_analysis` runs none of this: one launch of K5
+(``ops/leaf.leaf_tables``) computes its group info, move tables,
+successors and planes, equal to this module's torch code, which stays the
+plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from bokego_tpu_torch.coords import BLACK, DIAGONALS, EMPTY, NEIGHBORS, NN, PASS_ACTION, WHITE
 from bokego_tpu_torch.env import zobrist
 from bokego_tpu_torch.env.state import NO_KO, GoState
+from bokego_tpu_torch.ops import leaf
 from bokego_tpu_torch.utils import metrics
 
 _OFF = -1  # colour read at the off-board pad
@@ -307,18 +312,35 @@ def is_terminal(state: GoState, max_turns: int) -> torch.Tensor:
 
 class LeafAnalysis(NamedTuple):
     """The search's eval/expansion needs from one group analysis: the
-    feature tables and all successors."""
+    feature tables, all successors and the feature planes."""
 
     mt: MoveTables
     children: GoState  # (B, 82, ...) successors, hashes zeroed
     legal: torch.Tensor  # bool[B, 82]
+    planes: torch.Tensor | None = None  # float32[B, 9, 9, 27]; None from _leaf_analysis
+
+
+def _children(state: GoState, boards: torch.Tensor, ko: torch.Tensor) -> GoState:
+    """The hashless successors ``(B, 82, ...)`` with the given boards and
+    ko points; the rest follows from ``state``."""
+    t = _tables(state.board.device)
+    batch = boards.shape[0]
+    return GoState(
+        board=boards,
+        ko=ko,
+        turn=(state.turn + 1)[:, None].expand(batch, NN + 1),
+        last_move=t.actions.expand(batch, NN + 1),
+        hash=boards.new_zeros((batch, NN + 1, 2), dtype=torch.int64),
+        komi=state.komi[:, None].expand(batch, NN + 1),
+        invalid=state.invalid[:, None].expand(batch, NN + 1),
+    )
 
 
 def _leaf_analysis(state: GoState) -> tuple[LeafAnalysis, torch.Tensor]:
-    """:func:`leaf_analysis` and the capture table ``cap[b, a, q]`` it used."""
+    """:func:`leaf_analysis` without the planes, and the capture table
+    ``cap[b, a, q]`` it used."""
     t = _tables(state.board.device)
     board = state.board
-    batch = board.shape[0]
     color = state.to_play
     an = _analyze(board, state.ko, color)
 
@@ -326,22 +348,36 @@ def _leaf_analysis(state: GoState) -> tuple[LeafAnalysis, torch.Tensor]:
     new_boards = torch.where(an.cap, EMPTY, placed)  # (B, 81, 81)
     cap_idx = an.cap.int().argmax(-1)
     new_ko = torch.where((an.mt.caps == 1) & an.surrounded, cap_idx, NO_KO)
-    children = GoState(
-        board=torch.cat([new_boards, board[:, None, :]], dim=1),
-        ko=_pad(new_ko, NO_KO),
-        turn=(state.turn + 1)[:, None].expand(batch, NN + 1),
-        last_move=t.actions.expand(batch, NN + 1),
-        hash=board.new_zeros((batch, NN + 1, 2), dtype=torch.int64),
-        komi=state.komi[:, None].expand(batch, NN + 1),
-        invalid=state.invalid[:, None].expand(batch, NN + 1),
-    )
+    children = _children(state, torch.cat([new_boards, board[:, None, :]], dim=1), _pad(new_ko, NO_KO))
     return LeafAnalysis(mt=an.mt, children=children, legal=_pad(an.mt.legal, True)), an.cap
 
 
+def _leaf_analysis_card(state: GoState) -> LeafAnalysis:
+    """:func:`leaf_analysis` by one K5 launch."""
+    lt = leaf.leaf_tables(
+        state.board.contiguous(), state.ko.contiguous(), state.turn.contiguous(), state.last_move.contiguous()
+    )
+    mt = MoveTables(
+        legal=lt.legal[:, :NN],
+        libs_after=lt.libs_after,
+        caps=lt.caps,
+        info=GroupInfo(labels=lt.labels, libs=lt.libs, sizes=lt.sizes),
+    )
+    children = _children(state, lt.child_board, lt.child_ko)
+    return LeafAnalysis(mt=mt, children=children, legal=lt.legal, planes=lt.planes)
+
+
 def leaf_analysis(state: GoState) -> LeafAnalysis:
-    """Move tables plus every hashless successor of each position."""
+    """Move tables, every hashless successor of each position and its
+    feature planes: one K5 launch for CUDA tensors, the torch code of this
+    module and ``features`` for CPU tensors."""
     with metrics.span("rules.leaf_analysis"):
-        return _leaf_analysis(state)[0]
+        if leaf.on_card(state.board):
+            return _leaf_analysis_card(state)
+        from bokego_tpu_torch.features import features_from_tables  # features imports this module
+
+        la = _leaf_analysis(state)[0]
+        return la._replace(planes=features_from_tables(state, la.mt))
 
 
 def child_states(state: GoState, with_hash: bool = True) -> tuple[GoState, torch.Tensor]:

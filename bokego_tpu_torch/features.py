@@ -6,7 +6,9 @@ stones captured by playing (each bucketed: plane k+i holds i+1 where the
 count is i+1, the last plane holds 7 where it is above 6).
 
 Output layout is NHWC ``(B, 9, 9, 27)``, as in the JAX package; the nets
-permute to NCHW inside.
+permute to NCHW inside.  For CUDA tensors :func:`features_batch` is one K5
+launch (``ops/leaf.leaf_tables`` without the successors); the torch code
+here is the plain version, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from bokego_tpu_torch.coords import BLACK, EMPTY, NN
 from bokego_tpu_torch.env.rules import MoveTables, move_tables
 from bokego_tpu_torch.env.state import GoState
+from bokego_tpu_torch.ops import leaf
 from bokego_tpu_torch.utils import metrics
 
 NUM_PLANES = 27
@@ -62,6 +65,11 @@ def _planes(state: GoState, mt: MoveTables) -> torch.Tensor:
 def features_batch(state: GoState) -> torch.Tensor:
     """Batched GoState -> float32 (B, 9, 9, 27) NHWC planes."""
     with metrics.span("features"):
+        if leaf.on_card(state.board):
+            return leaf.leaf_tables(
+                state.board.contiguous(), state.ko.contiguous(), state.turn.contiguous(),
+                state.last_move.contiguous(), successors=False,
+            ).planes
         return _planes(state, move_tables(state.board, state.ko, state.to_play))
 
 

@@ -46,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from bokego_tpu_torch.coords import NN
+from bokego_tpu_torch.ops import check_tensor as _check
 from bokego_tpu_torch.search.tree import (
     C_CHILD,
     C_N,
@@ -84,17 +85,6 @@ def _lib():
         lib.bokego_backprop_path.restype = _I
         lib._bokego_typed = True
     return lib
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
 
 
 def _check_pstats(pstats: torch.Tensor) -> tuple[int, int]:

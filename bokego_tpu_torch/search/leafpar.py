@@ -44,7 +44,6 @@ import torch
 from bokego_tpu_torch.config import SearchConfig
 from bokego_tpu_torch.env import rules
 from bokego_tpu_torch.env.state import GoState
-from bokego_tpu_torch.features import features_from_tables
 from bokego_tpu_torch.search import tree as tr
 from bokego_tpu_torch.search.mcts import (
     Evaluator,
@@ -191,7 +190,7 @@ def _eval_and_expand_k(
         # one group analysis over all K*B leaves serves the features and the
         # successors that every expansion writes
         la = rules.leaf_analysis(flat_states)
-        probs, vals = _with_values(*ev.evaluate_fts(params, features_from_tables(flat_states, la.mt)))
+        probs, vals = _with_values(*ev.evaluate_fts(params, la.planes))
         children, legal = la.children, la.legal
     else:
         probs, vals = _with_values(*ev.evaluate(params, flat_states))

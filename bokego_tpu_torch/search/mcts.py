@@ -63,7 +63,7 @@ from bokego_tpu_torch.config import SearchConfig
 from bokego_tpu_torch.coords import NN, PASS_ACTION
 from bokego_tpu_torch.env import rules
 from bokego_tpu_torch.env.state import GoState
-from bokego_tpu_torch.features import features_batch, features_from_tables
+from bokego_tpu_torch.features import features_batch
 from bokego_tpu_torch.models import inference
 from bokego_tpu_torch.ops import rollout
 from bokego_tpu_torch.search import playout as po
@@ -300,7 +300,7 @@ def _eval_and_expand(trees: Tree, ev: Evaluator, params, cfg: SearchConfig, leav
         leaf_states = gather_states(trees.nodes, leaves)
         if ev.evaluate_fts is not None:
             la = rules.leaf_analysis(leaf_states)
-            probs, vals = _with_values(*ev.evaluate_fts(params, features_from_tables(leaf_states, la.mt)))
+            probs, vals = _with_values(*ev.evaluate_fts(params, la.planes))
             pre = (la.children, la.legal)
         else:
             probs, vals = _with_values(*ev.evaluate(params, leaf_states))

@@ -14,6 +14,10 @@ spans, once a ``search.expand`` span.
     with random Wq on deeper descents: one launch of 8 rollouts against its
     plain PyTorch version at 8 rollouts and against 8 launches of one
     rollout, everything bit for bit; timed at 1 and at 8 rollouts a launch;
+    2b. K5 ``leaf_tables`` on the leaves of the last K1 launch (B=1024)
+    and on the first of them alone (B=1) against its plain version on the
+    CPU, every output bit for bit at each batch, and timed at both beside
+    the plain version on the card;
  3. K2 ``write_rows`` against its plain version, masks all false, all true
     and mixed;
  4. the nets on the GPU against the same nets on the CPU, TF32 off;
@@ -25,7 +29,11 @@ spans, once a ``search.expand`` span.
     ``data/weights/jax_init_{policy_key0,value_key1}.pt``; phases 2-3 warm
     their trees with them, and a missing file fails the run) for MOVES
     moves, launch counts read around it (51 K1 launches and 400 K1 rollouts
-    a move);
+    a move; one K5 launch for each of K2's);
+ 6b. one self-play move of that path under ``torch.profiler`` with the
+    program's spans: K5 launches equal the eval steps with work plus the
+    ``features_batch`` calls, no ``sync.group_pass`` inside ``search.eval``,
+    and K5's device time a launch;
  7. K1 and K2 at the serving path's shapes against their plain versions, bit
     for bit: B=1 and B=8 at Nmax=512, levels=8, on trees warmed by the port's
     own search with the shipped nets; B=2 and B=34 at Nmax=65536 (a pool of
@@ -195,8 +203,11 @@ FAST side's), the serving match's launches beside the serving path's shapes,
 which its ``--fast --forest 8`` side shares, phase 30's move's launches
 beside the records at its shapes, the bench path's launches (phase 33's
 first fp32 run, the warm-up move included) beside phases 2-3's records at
-its shapes, phase 34's launches beside its records at B=BIG_BATCH, and
-phase 37's two forms of the epilogue with their launches a forward) and
+its shapes, phase 34's launches beside its records at B=BIG_BATCH, K5 at
+B=1024 with phase 6's launches and phase 6b's device time a launch and at
+B=1 with phase 9's default session's launches and phase 8b's device time a
+launch, and phase 37's two forms of the epilogue with their launches a
+forward) and
 the device line ``{"ok": true, "device": {...}}``; the line before them is
 ``nvidia-smi``'s name and power limit.
 """
@@ -464,6 +475,152 @@ def check_kernels_at(dev, ev, params, roots, shapes, levels: int, record_at: tup
             del p_k, p_p, singles_p
         del trees
         torch.cuda.empty_cache()
+    return records
+
+
+def leaf_bytes(batch: int, successors: bool) -> int:
+    """Bytes a K5 launch reads and writes: the positions (board, ko, turn,
+    last move) in; the planes out, and with the successors the group and
+    move tables (five int64 rows and the 82 legal flags), the successors'
+    boards and their ko points."""
+    out = 81 * 27 * 4
+    if successors:
+        out += 5 * 81 * 8 + 82 + 82 * 81 + 82 * 8
+    return batch * (81 + 3 * 8 + out)
+
+
+def _profiled_device_ms(fn, iters: int) -> float:
+    """Device time a call of ``fn`` by ``torch.profiler``: the sum of its
+    kernels' self time (for a function whose host reads keep it out of a
+    CUDA graph)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / iters
+
+
+def leaf_equal_plain(states, la, planes=None) -> float:
+    """Every output of a K5 launch through ``rules.leaf_analysis`` (``la``,
+    on the card) and, if given, the planes of a ``features_batch`` launch on
+    ``states`` against the plain version on the CPU, bit for bit (a failed
+    check ends the run).  Returns the largest absolute difference: 0.0."""
+    import dataclasses as dc
+
+    from bokego_tpu_torch.env import rules, state as st
+    from bokego_tpu_torch.features import features_from_tables
+
+    cpu = states.map(lambda x: x.cpu())
+    plain, _ = rules._leaf_analysis(cpu)
+    want_planes = features_from_tables(cpu, plain.mt)
+    pairs = {
+        "labels": (la.mt.info.labels, plain.mt.info.labels), "libs": (la.mt.info.libs, plain.mt.info.libs),
+        "sizes": (la.mt.info.sizes, plain.mt.info.sizes), "legal": (la.legal, plain.legal),
+        "libs_after": (la.mt.libs_after, plain.mt.libs_after), "caps": (la.mt.caps, plain.mt.caps),
+        "planes": (la.planes, want_planes),
+    }
+    for f in dc.fields(st.GoState):
+        pairs[f"children.{f.name}"] = (getattr(la.children, f.name), getattr(plain.children, f.name))
+    if planes is not None:
+        pairs["planes_only"] = (planes, want_planes)
+    err = 0.0
+    for name, (got, want) in pairs.items():
+        got = got.cpu()
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"K5 {name} differs from the plain version (B={states.board.shape[0]})")
+        if got.numel():
+            err = max(err, float((got.double() - want.double()).abs().max()))
+    return err
+
+
+def _spans_inside(rec, name: str, ancestor: str) -> int:
+    """Spans called ``name`` with ``ancestor`` among their enclosing spans."""
+    spans, n = rec.spans, 0
+    for sp in spans:
+        if sp[0] != name:
+            continue
+        parent = sp[3]
+        while parent >= 0 and spans[parent][0] != ancestor:
+            parent = spans[parent][3]
+        n += parent >= 0
+    return n
+
+
+def k5_main_path(rec, prof, what: str) -> dict:
+    """K5 on the main path, from a run recorded with the program's spans
+    (``rec``) under ``torch.profiler`` (``prof``): its launches equal the
+    eval steps with work (``search.eval_and_expand``) plus the
+    ``features_batch`` calls (``features``), the profiler's kernel count
+    equals the counter, and no label pass (``sync.group_pass``) falls inside
+    the eval phase.  Returns the counts and the device us a launch."""
+    ph = rec.phases
+    evals, feats = ph["search.eval_and_expand"].count, ph["features"].count
+    n = int(rec.counters["ops.leaf_tables"])
+    check(evals > 0 and n == evals + feats,
+          f"{what}: {n} K5 launches, expected {evals} eval steps with work + {feats} features_batch calls")
+    passes = _spans_inside(rec, "sync.group_pass", "search.eval")
+    check(passes == 0, f"{what}: {passes} sync.group_pass spans inside search.eval")
+    evs = [e for e in prof.key_averages() if "leaf_tables_kernel" in e.key]
+    calls, us = sum(e.count for e in evs), sum(e.self_device_time_total for e in evs)
+    check(calls == n, f"{what}: the profiler saw {calls} K5 kernels, the counter {n}")
+    log(f"K5 on the main path ({what}): {n} launches = {evals} eval steps with work + {feats} features_batch "
+        f"calls, no sync.group_pass inside search.eval; {us / calls:.3f} us a launch on the device")
+    return dict(launches=n, eval_steps=evals, features_calls=feats, device_us_per_launch=us / calls)
+
+
+def check_leaf_tables(dev, states) -> dict:
+    """Phase 2b: K5 ``leaf_tables`` on ``states`` (the leaves of phase 2's
+    warm trees) and on their first row alone (B=1, the served search's
+    shape), at each batch through ``rules.leaf_analysis`` and
+    ``features_batch``, one launch each, against the plain version on the
+    CPU, every output bit for bit; timed at each batch with and without the
+    successors, beside the plain version on the card (the torch code the
+    eval phase ran before K5).  Returns the records by batch."""
+    from bokego_tpu_torch.env import rules
+    from bokego_tpu_torch.features import features_batch, features_from_tables
+    from bokego_tpu_torch.ops import leaf
+
+    records = {}
+    for batch in (states.board.shape[0], 1):
+        s = states.map(lambda x: x[:batch].contiguous())
+        with metrics.recording(spans=False) as rec:
+            la = rules.leaf_analysis(s)
+            planes = features_batch(s)
+        check(kernel_calls(rec)["leaf_tables"] == 2, f"K5 launches {kernel_calls(rec)} at B={batch}, expected 2")
+        err = leaf_equal_plain(s, la, planes)
+        del la, planes
+        args = (s.board, s.ko, s.turn, s.last_move)
+
+        # Each call drops its outputs, as the search does: the eager loop would
+        # otherwise hold 200 calls' outputs and time fresh allocations.
+        def plain_call():
+            features_from_tables(s, rules._leaf_analysis(s)[0].mt)
+
+        def kernel_call():
+            leaf.leaf_tables(*args)
+
+        def planes_call():
+            leaf.leaf_tables(*args, successors=False)
+
+        ms, eager = time_ms(kernel_call, 200)
+        ms_planes, eager_planes = time_ms(planes_call, 200)
+        plain_eager = _events_ms(lambda: [plain_call() for _ in range(5)], 5)
+        plain_device = _profiled_device_ms(plain_call, 5)
+        b_ms, b_by = bound_ms(leaf_bytes(batch, True), 0)
+        records[batch] = dict(
+            max_abs_err=err, ms=ms, eager_ms=eager, planes_ms=ms_planes, planes_eager_ms=eager_planes,
+            plain_ms=plain_device, plain_eager_ms=plain_eager, bound_ms=b_ms, bound_by=b_by,
+            bound_bytes=leaf_bytes(batch, True), library_ms=None,
+        )
+        log(
+            f"K5 leaf_tables B={batch}: every output equals the plain version bit for bit (max_abs_err={err}); "
+            f"graph-replayed device ms a launch: kernel_ms={ms:.5f}, planes alone (successors=False) "
+            f"{ms_planes:.5f}; bound_ms={b_ms:.5f} ({leaf_bytes(batch, True)} B); eager ms a launch: "
+            f"kernel {eager:.5f}, planes alone {eager_planes:.5f}; "
+            f"plain on the card: device_ms={plain_device:.5f} eager_ms={plain_eager:.5f}"
+        )
     return records
 
 
@@ -1029,11 +1186,15 @@ def check_path_kernels(dev, params) -> dict:
     Python, the plain versions eager: their descent reads the host once a
     level), with the bytes a launch needs and their bound, and each
     kernel's device time a launch on the main path (a profiled ``genmove``
-    of that configuration).  Returns the records by kernel and batch."""
+    of that configuration).  In that genmove, K5 too: its launches (one an
+    eval step with work and one a ``features_batch``), its device time a
+    launch, and every leaf it analysed against the plain version, bit for
+    bit.  Returns the records by kernel and batch."""
     from torch.profiler import ProfilerActivity, profile
 
     from bokego_tpu_torch import cli
     from bokego_tpu_torch.config import EngineConfig
+    from bokego_tpu_torch.env import rules
     from bokego_tpu_torch.gtp.engine import GTPEngine
     from bokego_tpu_torch.ops import rollout
     from bokego_tpu_torch.search import mcts
@@ -1102,16 +1263,34 @@ def check_path_kernels(dev, params) -> dict:
                 f"bound_ms={b_ms:.7f} ({b_by}, {n_bytes[name]} B)")
         del scratch, trees
 
-    # the main path: one profiled genmove of the -r 100 engine
+    # the main path: one profiled genmove of the -r 100 engine, with every
+    # position it hands K5 kept (cloned) and held against the plain version
     ecfg = EngineConfig(time_lim=None, n_rollouts=100, pondering=False)
     eng = GTPEngine(ev, params, cfg, ecfg, device=dev)
     eng.running = True
     for cmd in ("play black E5", "genmove white", "play black D4"):
         check(eng.send(cmd).startswith("="), f"served engine: {cmd}")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        check(eng.send("genmove white").startswith("="), "served engine: genmove")
-        torch.cuda.synchronize()
+    seen, analyse = [], rules.leaf_analysis
+
+    def kept(state):
+        la = analyse(state)
+        seen.append((state.map(lambda x: x.clone()), la))
+        return la
+
+    rules.leaf_analysis = kept  # the search calls it through the module
+    try:
+        with metrics.recording() as rec, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            check(eng.send("genmove white").startswith("="), "served engine: genmove")
+            torch.cuda.synchronize()
+    finally:
+        rules.leaf_analysis = analyse
+    records[("leaf_tables", "main_path")] = k5_main_path(rec, prof, "-r 100 genmove, B=1")
+    check(len(seen) == rec.phases["search.eval_and_expand"].count, f"{len(seen)} leaf analyses kept")
+    err = max(leaf_equal_plain(state, la) for state, la in seen)
+    log(f"K5 on the served engine's {len(seen)} leaves (B=1): every output equals the plain version bit for bit "
+        f"(max_abs_err={err})")
+    del seen
     for name in ("descend_path", "backprop_path"):
         evs = [e for e in prof.key_averages() if f"{name}_kernel" in e.key]
         calls = sum(e.count for e in evs)
@@ -1222,15 +1401,16 @@ def check_epilogue(dev) -> dict:
 
 
 def serving_phases(dev, roots):
-    """Phases 7-13; returns (records, launch counts) of K1/K2 on the --fast
-    engine's path."""
+    """Phases 7-13; returns the records of K1/K2 on the --fast engine's path,
+    the launch counts of the --fast and of the default session, and K5's
+    figures on the served path (phase 8b's profiled genmove)."""
     from bokego_tpu_torch.config import POLICY_WEIGHTS, VALUE_WEIGHTS
     from bokego_tpu_torch.models import nets
 
     params = {"policy": nets.load_policy(POLICY_WEIGHTS, device=dev), "value": nets.load_value(VALUE_WEIGHTS, device=dev)}
     records = check_serving_kernels(dev, params, roots)
     check_plain_search(dev)
-    check_path_kernels(dev, params)
+    path_records = check_path_kernels(dev, params)
     default_counts = serve_session(dev, params, fast=False)
     fast_counts = serve_session(dev, params, fast=True)
     log(f"served sessions: launches default {default_counts}, --fast {fast_counts}")
@@ -1243,7 +1423,7 @@ def serving_phases(dev, roots):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gtp_") as tmp:
         serve_process(tmp)
-    return records, fast_counts
+    return records, fast_counts, default_counts, path_records[("leaf_tables", "main_path")]
 
 
 def _sl_step_gpu_vs_cpu(dev, kind: str, net, fts, targets) -> dict:
@@ -2104,7 +2284,7 @@ def main() -> int:
     from bokego_tpu_torch.ops import build, rollout
     from bokego_tpu_torch.parallel.selfplay import selfplay
     from bokego_tpu_torch.search import mcts
-    from bokego_tpu_torch.search.tree import C_WQ
+    from bokego_tpu_torch.search.tree import C_WQ, gather_states
     from tests.torch_fake_eval import fake_evaluator
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
@@ -2209,6 +2389,7 @@ def main() -> int:
         f"bound_ms={bound_ms(wide_bytes, rows_loaded * 128 * 12)[0]:.5f}"
     )
     records["descend_backprop"] = dict(max_abs_err=k1_err, library_ms=None, rollouts_per_launch=FUSED, **k1[FUSED])
+    leaf_records = check_leaf_tables(dev, gather_states(trees.nodes, rollout.unpack(singles["main"][-1]).leaf))
 
     # 3. K2 with masks all false, all true, mixed.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2282,6 +2463,8 @@ def main() -> int:
     k1_rollouts = counts["descend_backprop.rollouts"]
     check(counts["descend_backprop"] > 0 and counts["write_rows"] > 0, f"a kernel of the main path never launched: {counts}")
     check(counts["descend_path"] == counts["backprop_path"] == 0, f"the kernel path launched K3/K4: {counts}")
+    check(counts["leaf_tables"] > 0 and counts["leaf_tables"] == counts["write_rows"],
+          f"K5 launches {counts['leaf_tables']}, expected K2's {counts['write_rows']}: one a batch of leaves expanded")
     groups = mcts.rollout_groups(CFG.n_rollouts, CFG.eval_every)
     check(len(groups) == 51, f"{len(groups)} rollout groups a move, expected 51")
     check(counts["descend_backprop"] == 51 * MOVES, f"K1 launches {counts['descend_backprop']}, expected {51 * MOVES}")
@@ -2297,7 +2480,16 @@ def main() -> int:
         f"launches={counts} K1_rollouts={k1_rollouts} peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.2f}"
     )
 
-    records_serving, serve_counts = serving_phases(dev, roots)
+    # 6b. K5 in one self-play move of the main path, profiled, spans on.
+    with metrics.recording() as rec, torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        selfplay(params, ev, CFG, BATCH, 1, CFG.n_rollouts, device=dev)
+        torch.cuda.synchronize()
+    k5_selfplay = k5_main_path(rec, prof, f"one self-play move, B={BATCH}")
+    del rec, prof
+
+    records_serving, serve_counts, default_counts, k5_served = serving_phases(dev, roots)
     del roots
     torch.cuda.empty_cache()
     train_figures = training_phases(dev)
@@ -2327,6 +2519,15 @@ def main() -> int:
             ("bench", bench_counts, records), ("bench_b4096", big_counts, big_records),
         )
         for name in ("descend_backprop", "write_rows")
+    ] + [
+        dict(
+            name="leaf_tables", route="cuda", source="bokego_tpu_torch/ops/csrc/leaf.cu", replaces=None,
+            path=path, batch=batch, launches=calls["leaf_tables"],
+            main_path_us=main["device_us_per_launch"], **leaf_records[batch],
+        )
+        for batch, path, calls, main in (
+            (BATCH, "selfplay", counts, k5_selfplay), (1, "gtp_engine", default_counts, k5_served),
+        )
     ] + [
         dict(
             name=f"bias_add_relu.{form}", route="cuda", source="bokego_tpu_torch/ops/csrc/epilogue.cu",

@@ -4,8 +4,10 @@ trees up to the search's depth bound), GPU self-play, the non-kernel
 search, leaf-parallel search and simulation mode (with the one-hot playout
 policy, whose draws cannot matter) against their CPU runs, a short engine
 session per configuration on the card, the profiler hooks, the program's
-``sync.<site>`` spans against CUDA's sync debug mode, and the residual
-tower's trunk epilogue against its plain version and in the tower.
+``sync.<site>`` spans against CUDA's sync debug mode, the residual
+tower's trunk epilogue against its plain version and in the tower, and K5
+``leaf_tables`` (the eval phase's board analysis) against its plain
+version on seeded and crafted positions and in the search.
 Marked ``cuda``; they skip without a GPU.  This file imports no JAX, so it
 also runs where JAX is absent:
 
@@ -21,6 +23,7 @@ import warnings
 import pytest
 import torch
 
+from bokego_tpu_torch import features
 from bokego_tpu_torch.config import BENCH_CONFIG, EngineConfig, SearchConfig
 from bokego_tpu_torch.env import rules, state as st
 from bokego_tpu_torch.gtp.engine import GTPEngine
@@ -31,6 +34,7 @@ from bokego_tpu_torch.search import leafpar, mcts, tree
 from bokego_tpu_torch.search.tree import C_CHILD, C_N, C_PRIOR, C_WQ, C_WV
 from bokego_tpu_torch.utils import metrics
 from tests.torch_fake_eval import fake_evaluator, onehot_evaluator, stones_evaluator
+from tests.torch_leaf_boards import crafted_positions, random_positions
 
 pytestmark = pytest.mark.cuda
 
@@ -610,3 +614,109 @@ def test_tower_forward_is_79_epilogue_launches_and_matches_the_unfused_one(dev, 
     trunk = kernels[epi[-79]:epi[-1] + 1]  # the last forward, stem epilogue to last epilogue
     assert sum("bias_add_relu" in k for k in trunk) == 79
     assert not [k for k in trunk if "elementwise" in k], trunk
+
+
+# ---------------------------------------------------------------------------
+# K5: the eval phase's board analysis (ops/leaf.py)
+
+
+def _leaf_positions(batch: int, seed: int):
+    """Seeded random games on the CPU, a quarter each stopped at ply 5, 30,
+    55 and 80 (one game at ply 40 for B=1)."""
+    if batch == 1:
+        return random_positions(1, 40, seed, "cpu")
+    parts = [random_positions(batch // 4, plies, seed + plies, "cpu") for plies in (5, 30, 55, 80)]
+    return st.GoState(*(torch.cat(xs) for xs in zip(*(p.tensors() for p in parts))))
+
+
+def _assert_leaf_tables_equal_plain(dev, s_cpu):
+    """K5 through ``rules.leaf_analysis`` and ``features_batch`` on the card,
+    one launch each, against the plain version on the CPU: every output bit
+    for bit."""
+    s = s_cpu.map(lambda x: x.to(dev))
+    with metrics.recording() as rec:
+        la = rules.leaf_analysis(s)
+        planes_only = features.features_batch(s)
+    assert rec.counters["ops.leaf_tables"] == 2 and "sync.group_pass" not in rec.phases
+    plain, _ = rules._leaf_analysis(s_cpu)
+    want_planes = features.features_from_tables(s_cpu, plain.mt)
+    got = {
+        "labels": la.mt.info.labels, "libs": la.mt.info.libs, "sizes": la.mt.info.sizes,
+        "legal": la.mt.legal, "libs_after": la.mt.libs_after, "caps": la.mt.caps, "legal82": la.legal,
+        "planes": la.planes, "planes_only": planes_only,
+    }
+    want = {
+        "labels": plain.mt.info.labels, "libs": plain.mt.info.libs, "sizes": plain.mt.info.sizes,
+        "legal": plain.mt.legal, "libs_after": plain.mt.libs_after, "caps": plain.mt.caps, "legal82": plain.legal,
+        "planes": want_planes, "planes_only": want_planes,
+    }
+    for f in dataclasses.fields(st.GoState):
+        got[f"children.{f.name}"] = getattr(la.children, f.name)
+        want[f"children.{f.name}"] = getattr(plain.children, f.name)
+    for name, x in got.items():
+        assert x.device.type == "cuda" and x.dtype == want[name].dtype, name
+        assert torch.equal(x.cpu(), want[name]), name
+
+
+@pytest.mark.parametrize("batch", [1, 64, 1024])
+def test_leaf_tables_match_plain(dev, batch):
+    """K5 bit for bit against the plain version on seeded positions."""
+    _assert_leaf_tables_equal_plain(dev, _leaf_positions(batch, seed=batch))
+
+
+def test_leaf_tables_match_plain_on_crafted_boards(dev):
+    """K5 on ``tests/torch_leaf_boards.CRAFTED``: the empty board, a snake
+    chain across the board (the label loop's worst case), a move capturing
+    two groups, a capture of eight, a ko before and after the take, a
+    suicide point, a full board with one empty point for either side."""
+    _assert_leaf_tables_equal_plain(dev, crafted_positions("cpu"))
+
+
+def _group_passes_inside(rec, ancestor: str) -> int:
+    """``sync.group_pass`` spans with ``ancestor`` among their enclosing spans."""
+    spans, n = rec.spans, 0
+    for s in spans:
+        if s[0] != "sync.group_pass":
+            continue
+        parent = s[3]
+        while parent >= 0 and spans[parent][0] != ancestor:
+            parent = spans[parent][3]
+        n += parent >= 0
+    return n
+
+
+@pytest.mark.parametrize("path", ["selfplay_move", "genmove"])
+def test_leaf_tables_serve_every_eval_on_the_card(dev, path):
+    """A batched kernel-path move (B=64, the bench's search with root noise)
+    and a served ``genmove`` with the nets on the card: one K5 launch per
+    eval step with work and per ``features_batch`` call, and no label pass
+    (``sync.group_pass``) inside the eval phase."""
+    params = {"policy": nets.init_policy(device=dev).eval(), "value": nets.init_value(device=dev).eval()}
+    ev = mcts.net_evaluator()
+    if path == "genmove":
+        ecfg = EngineConfig(time_lim=None, n_rollouts=32, pondering=False)
+        eng = GTPEngine(ev, params, SearchConfig(expand_thresh=2, max_nodes=512), ecfg, device=dev)
+        eng.running = True
+        assert eng.send("play black E5").startswith("=")
+
+        def run():
+            assert eng.send("genmove white").startswith("=")
+    else:
+        cfg = dataclasses.replace(BENCH_CONFIG, n_rollouts=64, noise_weight=0.25, dirichlet_alpha=0.1)
+        roots = _midgame_roots(dev)
+        roots = roots.map(lambda x: x.repeat(8, *[1] * (x.dim() - 1)))
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def run():
+            actions, _ = mcts.search(roots, ev, params, cfg, gen=gen)
+            rules.is_terminal(rules.step(roots, actions), cfg.max_turns)
+
+    with metrics.recording() as rec:
+        run()
+    ph = rec.phases
+    evals = ph["search.eval_and_expand"].count
+    assert evals > 0 and ph["features"].count > 0
+    assert rec.counters["ops.leaf_tables"] == evals + ph["features"].count
+    assert ph["rules.leaf_analysis"].count == evals
+    assert _group_passes_inside(rec, "search.eval") == 0
+    assert _group_passes_inside(rec, "search.eval_and_expand") == 0
